@@ -1,0 +1,170 @@
+"""SliceProof, the flagship decoder-only transformer, in PyTorch
+(counterpart of ``k8s_dra_driver_tpu/models/flagship.py``).
+
+Parameters keep the JAX pytree's layout and names (``wqkv`` [d, 3, heads,
+head_dim], ``wo`` [heads, head_dim, d], ``w1``, ``w2``, ``ln1``, ``ln2``,
+``embed`` [vocab, d], ``unembed`` [d, vocab]) as f32 masters, cast to bf16
+at each matmul as the reference does, so ``convert.params_from_jax`` can
+load a JAX ``init_params`` tree and both sides compute the same function.
+
+This slice runs the single-device forward and the no-grad scoring path
+``evaluate_nll``, whose unembed + cross-entropy is the fused CUDA kernel
+(``ops/fused_ce.py``). Training, ``attention="flash"`` and ``remat`` come
+with later slices.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from k8s_dra_driver_tpu_torch import DeviceLike, resolve_device
+from k8s_dra_driver_tpu_torch.models.common import (
+    causal_einsum_attention,
+    nll_loss,
+    rmsnorm,
+)
+from k8s_dra_driver_tpu_torch.ops.fused_ce import fused_ce_losses
+
+
+@dataclass(frozen=True)
+class SliceProofConfig:
+    vocab: int = 256
+    d_model: int = 128
+    n_heads: int = 8
+    n_layers: int = 2
+    d_ff: int = 512
+    seq_len: int = 64
+    learning_rate: float = 1e-3
+    # "einsum" is the only attention of this slice; "flash" needs the
+    # hand-written Hopper flash-attention kernel (ROADMAP, Queue 2).
+    attention: str = "einsum"
+    # Rematerialization is part of the training slice (ROADMAP, Queue 1).
+    remat: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        if self.d_model % self.n_heads:
+            raise ValueError(f"d_model {self.d_model} is not a multiple of "
+                             f"n_heads {self.n_heads}")
+        return self.d_model // self.n_heads
+
+    @classmethod
+    def tiny(cls) -> "SliceProofConfig":
+        return cls()
+
+    @classmethod
+    def bench(cls) -> "SliceProofConfig":
+        """The benchmark shape of the reference (~690M matmul params):
+        d_model 2048, 2 heads of head_dim 1024, ratio-8 FFN, 8 layers."""
+        return cls(vocab=8192, d_model=2048, n_heads=2, n_layers=8,
+                   d_ff=16384, seq_len=1024)
+
+
+def matmul_param_count(cfg: SliceProofConfig) -> int:
+    """Parameters on the matmul path (excludes norms and the embedding
+    lookup): the N in the 6·N·T FLOPs-per-train-step estimate."""
+    per_layer = 3 * cfg.d_model * cfg.d_model   # wqkv
+    per_layer += cfg.d_model * cfg.d_model      # wo
+    per_layer += 2 * cfg.d_model * cfg.d_ff     # w1 + w2
+    return cfg.n_layers * per_layer + cfg.d_model * cfg.vocab  # + unembed
+
+
+class Block(nn.Module):
+    """One pre-norm transformer layer: einsum attention, then a GELU FFN."""
+
+    def __init__(self, cfg: SliceProofConfig, device: torch.device):
+        super().__init__()
+        d, h, k, f = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
+        self.head_dim = k
+        self.wqkv = nn.Parameter(torch.empty(d, 3, h, k, device=device))
+        self.wo = nn.Parameter(torch.empty(h, k, d, device=device))
+        self.w1 = nn.Parameter(torch.empty(d, f, device=device))
+        self.w2 = nn.Parameter(torch.empty(f, d, device=device))
+        self.ln1 = nn.Parameter(torch.ones(d, device=device))
+        self.ln2 = nn.Parameter(torch.ones(d, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = rmsnorm(x, self.ln1)
+        x = causal_einsum_attention(self.wqkv, self.wo, x, h, self.head_dim)
+        h = rmsnorm(x, self.ln2)
+        # jax.nn.gelu defaults to the tanh approximation.
+        ff = F.gelu(h @ self.w1.to(torch.bfloat16), approximate="tanh")
+        return x + ff @ self.w2.to(torch.bfloat16)
+
+
+class SliceProof(nn.Module):
+    """The flagship model. ``forward`` returns f32 logits [b, s, vocab]."""
+
+    def __init__(self, cfg: SliceProofConfig, device: DeviceLike = None):
+        super().__init__()
+        if cfg.attention != "einsum":
+            raise NotImplementedError(
+                f"attention={cfg.attention!r} needs the hand-written Hopper "
+                "flash-attention kernel (ROADMAP Queue 2: flash attention)")
+        if cfg.remat:
+            raise NotImplementedError(
+                "remat belongs to the training slice (ROADMAP Queue 1: "
+                "training slice)")
+        device = resolve_device(device)
+        self.cfg = cfg
+        self.embed = nn.Parameter(torch.empty(cfg.vocab, cfg.d_model, device=device))
+        self.unembed = nn.Parameter(torch.empty(cfg.d_model, cfg.vocab, device=device))
+        self.layers = nn.ModuleList(Block(cfg, device) for _ in range(cfg.n_layers))
+
+    def forward_hidden(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [b, s] int -> final hidden states [b, s, d_model] bf16."""
+        x = self.embed.to(torch.bfloat16)[tokens.long()]
+        for layer in self.layers:
+            x = layer(x)
+        return x
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens [b, s] int -> logits [b, s, vocab] float32."""
+        x = self.forward_hidden(tokens)
+        return (x @ self.unembed.to(torch.bfloat16)).float()
+
+    def loss_fn(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Mean next-token NLL through the materialized logits."""
+        return nll_loss(self.forward(tokens), tokens)
+
+    @torch.no_grad()
+    def evaluate_nll(self, tokens: torch.Tensor, *,
+                     block_t: int = 256) -> torch.Tensor:
+        """Mean next-token NLL for scoring: the same value as ``loss_fn``,
+        but the unembed projection and cross-entropy run in the fused
+        kernel, so the [tokens, vocab] logits never reach device memory."""
+        cfg = self.cfg
+        h = self.forward_hidden(tokens)[:, :-1]
+        labels = tokens[:, 1:].reshape(-1).long()
+        flat = h.reshape(-1, cfg.d_model)
+        t_dim = flat.shape[0]
+        block_v = min(512, cfg.vocab)
+        pad = (-t_dim) % block_t
+        if pad:
+            flat = torch.cat([flat, flat.new_zeros(pad, cfg.d_model)])
+            labels = torch.cat([labels, labels.new_full((pad,), -1)])  # no class
+        losses = fused_ce_losses(flat, self.unembed.to(torch.bfloat16),
+                                 labels, block_t, block_v)
+        return losses[:t_dim].mean()
+
+
+@torch.no_grad()
+def init_params(cfg: SliceProofConfig, seed: int = 0,
+                device: DeviceLike = None) -> SliceProof:
+    """A SliceProof with random weights from ``seed``: dense weights
+    0.02·N(0, 1), norm gains 1, drawn from an explicit ``torch.Generator``
+    on the target device (its numbers differ from ``jax.random``'s; use
+    ``convert.params_from_jax`` to carry JAX weights over)."""
+    device = resolve_device(device)
+    model = SliceProof(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for name, p in model.named_parameters():
+        if name.rsplit(".", 1)[-1] in ("ln1", "ln2"):
+            p.fill_(1.0)
+        else:
+            p.normal_(0.0, 0.02, generator=gen)
+    return model
