@@ -8,21 +8,41 @@ It imports the port only (never JAX) and fails with a non-zero exit code,
 printing no result, when there is no card or no port beside it.
 
 Phases, each fatal on failure:
- 1. build: compile every CUDA source of the port with nvcc (sm_90a);
+ 1. build: compile every CUDA source of the port with nvcc (sm_90a), all
+    at once;
  2. kernels: hold each kernel to its plain PyTorch version (and the
-    materializing reference) on the card at the shapes the main path gives
-    it, and time kernel, plain version, one library call and the bound;
- 3. scoring: the main path. SliceProof at the full width of
-    SliceProofConfig.bench() with seeded random weights scores a few
-    batches of 4x1024 tokens through evaluate_nll, with the launch counts
-    cleared just before and read just after; the NLL is checked against
-    the materializing loss_fn, and a tiny() model against itself on the CPU;
- 4. device: the card's name and power limit from nvidia-smi.
+    materializing reference) on the card at the shapes the main paths give
+    it, and time kernel, plain version, one library call and the bound.
+    fused_ce_fwd at T=4096, D=2048, V=8192, V=1000, labels -1 and V=1001.
+    fused_ce_dx and fused_ce_dw at the fused objective's shape (T=4096:
+    4*1023 tokens padded, the last 4 rows labelled -1 with g=0, g=1/4092
+    elsewhere), at V=1000 and at V=1001 with T=512 (the element-wise
+    loader), each against fused_ce_dx_plain / fused_ce_dw_plain and
+    against torch.autograd.grad of the materializing reference;
+ 3. scoring: SliceProof at the full width of SliceProofConfig.bench() with
+    seeded random weights scores a few batches of 4x1024 tokens through
+    evaluate_nll under torch.no_grad(): exactly one fused_ce_fwd a batch
+    and no backward kernel. The NLL is checked against the materializing
+    loss_fn, and a tiny() model against itself on the CPU;
+ 4. fused objective: torch.autograd.grad(evaluate_nll, params) at bench
+    width, batch 4x1024: exactly one fused_ce_fwd, fused_ce_dx and
+    fused_ce_dw a call; the grads held leaf by leaf to those of loss_fn;
+ 5. training: make_sharded_train_step(SliceProofConfig.bench(), [card],
+    batch_per_replica=4, seed=0), one warm-up step and five more on the
+    same batch, each ending in float(loss): finite losses, the last below
+    the first, the first equal to loss_fn at the initial weights; step ms,
+    tokens/s, peak memory and MFU. Then one remat=True step from fresh
+    seed-0 weights, whose loss must equal the first plain loss;
+ 6. device: the card's name and power limit from nvidia-smi.
+Each of phases 3-5 clears the launch counts just before its path and
+reads them just after.
+
+Tolerances, with their reasons, stand beside their constants below.
 
 The last three lines of standard output are the kernels' JSON record, the
 nvidia-smi line and ``{"ok": true, "device": {...}}``. ``--profile DIR``
-also traces one scoring batch with torch.profiler and writes the table of
-device time by kernel to DIR.
+also traces one scoring batch and one training step with torch.profiler
+and writes the tables of device time by kernel to DIR.
 """
 
 from __future__ import annotations
@@ -40,6 +60,9 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 
 SCORE_BATCH, SCORE_BATCHES = 4, 4
+# The fused CE's shape at bench width: evaluate_nll on 4x1024 tokens gives
+# 4*1023 scored tokens, padded to T=4096; d_model 2048, vocab 8192.
+KERNEL_T, KERNEL_D, KERNEL_V = 4096, 2048, 8192
 # Kernel vs plain version: both sum the same exact bf16 products in f32,
 # in another order over D=2048 terms; the exp/log of the fold add ~1e-6
 # relative on losses of ~9.
@@ -48,6 +71,28 @@ KERNEL_ATOL, KERNEL_RTOL = 1e-3, 1e-4
 # tolerance (bench.py, check_fused_ce_numerics); the logits of loss_fn are
 # rounded to bf16, the kernel's are not.
 NLL_RTOL = 2e-2
+# Backward kernels vs their plain versions and the materializing reference,
+# as max|err| / max|plain| per output tensor: the kernels round p to bf16
+# for the second tensor-core product (2**-9 relative a term, f32 sums) and
+# write bf16 (2**-9 relative); the plain versions keep f32 p, as the
+# reference does.
+BWD_REL_TOL = 1e-2
+# Grads of evaluate_nll vs grads of loss_fn, per leaf, normalized by
+# max|loss_fn leaf|: the repo's bf16 tolerance (test_models_flagship.py's
+# remat test). loss_fn's logits and their grads are bf16, the kernels'
+# are f32 with bf16 p.
+GRAD_LEAF_ATOL = 2e-2
+# The first training step's loss vs loss_fn at the same weights: the same
+# ops on the same inputs; only a cuBLAS algorithm chosen differently with
+# autograd recording could move the last bits.
+FIRST_LOSS_RTOL = 1e-5
+# remat recomputes the same ops: the reference's remat bound.
+REMAT_RTOL = 1e-3
+
+# Calls of grad(evaluate_nll) before the counted ones: the first two grow
+# the caching allocator (371 and 283 ms against 60 ms steady on an H100).
+OBJECTIVE_WARMUP, OBJECTIVE_CALLS = 2, 3
+TRAIN_BATCH, TRAIN_STEPS = 4, 5  # per step: 4x1024 tokens; plus one warm-up
 
 
 def fail(msg: str) -> None:
@@ -120,11 +165,120 @@ def bound_ms(T: int, D: int, V: int):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def bwd_bound_ms(T: int, D: int, V: int, kernel: str):
+    flops = 4.0 * T * D * V  # the logits recomputed, then the second product
+    # x and w in bf16, labels/lse/g (4 bytes each) read once; dx [T, D] or
+    # dw [D, V] bf16 written once.
+    out = T * D if kernel == "fused_ce_dx" else D * V
+    nbytes = 2.0 * (T * D + D * V) + 12.0 * T + 2.0 * out
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_bwd_case(name, x, w, labels, g, timed: bool):
+    """dx and dw kernels vs their plain versions and vs torch.autograd.grad
+    of the materializing reference. Returns, by kernel, the max abs error
+    against the plain version and, when ``timed``, the kernel's and plain
+    version's ms and the library call's (both grads together)."""
+    import torch
+    import torch.nn.functional as F
+
+    from k8s_dra_driver_tpu_torch.ops.fused_ce import (
+        KERNEL_DW,
+        KERNEL_DX,
+        _launch_bwd,
+        fused_ce_dw_plain,
+        fused_ce_dx_plain,
+        reference_ce_losses,
+    )
+
+    lse = torch.logsumexp(x.float() @ w.float(), dim=1)
+    # g is 0 on the rows labelled -1, so any class stands in for them.
+    xr = x.float().requires_grad_()
+    wr = w.float().requires_grad_()
+    ref = torch.autograd.grad(reference_ce_losses(xr, wr, labels.clamp(min=0)),
+                              (xr, wr), g)
+    row = {"case": name, "T": x.shape[0], "D": x.shape[1], "V": w.shape[1]}
+    out = {}
+    for kernel, plain_fn, want in ((KERNEL_DX, fused_ce_dx_plain, ref[0]),
+                                   (KERNEL_DW, fused_ce_dw_plain, ref[1])):
+        got = _launch_bwd(kernel, x, w, labels, lse, g)
+        torch.cuda.synchronize()
+        plain = plain_fn(x, w, labels, lse, g)
+        gf, pf = got.float(), plain.float()
+        if got.shape != plain.shape or not bool(torch.isfinite(gf).all()):
+            fail(f"{kernel} {name}: shape {tuple(got.shape)} (want "
+                 f"{tuple(plain.shape)}) or non-finite values")
+        err = float((gf - pf).abs().max())
+        rel = err / float(pf.abs().max())
+        rel_ref = float((gf - want).abs().max() / want.abs().max())
+        rel_plain_ref = float((pf - want).abs().max() / want.abs().max())
+        row[kernel] = {"max_abs_err_vs_plain": err, "rel_err_vs_plain": rel,
+                       "rel_err_vs_reference": rel_ref,
+                       "plain_rel_err_vs_reference": rel_plain_ref}
+        if rel > BWD_REL_TOL or rel_ref > BWD_REL_TOL:
+            fail(f"{kernel} {name}: error vs plain {rel:.3e}, vs reference "
+                 f"{rel_ref:.3e} of max|value| (tolerance {BWD_REL_TOL})")
+        out[kernel] = {"max_abs_err": err}
+        if timed:
+            out[kernel]["ms"] = time_ms(
+                lambda: _launch_bwd(kernel, x, w, labels, lse, g), 10)
+            out[kernel]["plain_ms"] = time_ms(
+                lambda: plain_fn(x, w, labels, lse, g), 3)
+            row[kernel].update(ms=out[kernel]["ms"], plain_ms=out[kernel]["plain_ms"])
+    if timed:
+        # One PyTorch call for both grads: autograd over the materializing
+        # loss (the forward row's logits call), the graph kept between runs.
+        xl = x.detach().requires_grad_()
+        wl = w.detach().requires_grad_()
+        loss = F.cross_entropy(xl.float() @ wl.float(), labels, reduction="none",
+                               ignore_index=-1)
+        lib = time_ms(lambda: torch.autograd.grad(loss, (xl, wl), g,
+                                                  retain_graph=True), 5)
+        row["library_ms_dx_and_dw"] = lib
+        for kernel in out:
+            out[kernel]["library_ms"] = lib
+    print(f"kernel fused_ce_bwd {json.dumps(row)}")
+    return out
+
+
+def phase_bwd_kernels(device):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(3)
+
+    def inputs(t, d, v, pad_every):
+        x = torch.randn(t, d, generator=gen, device=device).to(torch.bfloat16)
+        w = (0.02 * torch.randn(d, v, generator=gen, device=device)).to(torch.bfloat16)
+        labels = torch.randint(0, v, (t,), generator=gen, device=device)
+        if pad_every:
+            labels[::pad_every] = -1
+        # A non-uniform upstream gradient, 0 on the rows labelled -1.
+        g = (0.5 + torch.rand(t, generator=gen, device=device)) / t
+        return x, w, labels, torch.where(labels >= 0, g, 0.0)
+
+    # The fused objective's shape: 4*1023 tokens padded to 4096 with label
+    # -1 and g=0; the mean gives g=1/4092 on every real row.
+    T, D, V = KERNEL_T, KERNEL_D, KERNEL_V
+    x, w, labels, _ = inputs(T, D, V, 0)
+    labels[-4:] = -1
+    g = torch.where(labels >= 0, 1.0 / (T - 4), 0.0)
+    bench = check_bwd_case("bench", x, w, labels, g, timed=True)
+    errs = [bench]
+    errs.append(check_bwd_case("vocab_1000", *inputs(T, D, 1000, 5), timed=False))
+    # V % 8 != 0 takes the element-wise loader instead of cp.async.
+    errs.append(check_bwd_case("vocab_1001", *inputs(512, D, 1001, 5), timed=False))
+    for kernel, row in bench.items():
+        row["max_abs_err"] = max(e[kernel]["max_abs_err"] for e in errs)
+        row["bound_ms"], row["bound_by"] = bwd_bound_ms(T, D, V, kernel)
+    return bench
+
+
 def phase_kernels(device):
     import torch
 
     gen = torch.Generator(device=device).manual_seed(0)
-    T, D, V = 4096, 2048, 8192  # evaluate_nll at bench: 4*1023 tokens pad to 4096
+    T, D, V = KERNEL_T, KERNEL_D, KERNEL_V
 
     def inputs(t, d, v):
         x = torch.randn(t, d, generator=gen, device=device).to(torch.bfloat16)
@@ -168,9 +322,9 @@ def phase_scoring(device, profile_dir):
                         generator=torch.Generator().manual_seed(2))
     with torch.no_grad():
         lg, lc = tiny_gpu(tok.to(device)).cpu(), tiny_cpu(tok)
+        ng = float(tiny_gpu.evaluate_nll(tok.to(device)))
+        nc = float(tiny_cpu.evaluate_nll(tok))
     logit_err = float((lg - lc).abs().max() / lc.abs().max())
-    ng = float(tiny_gpu.evaluate_nll(tok.to(device)))
-    nc = float(tiny_cpu.evaluate_nll(tok))
     print(f"tiny cuda vs cpu: logits err/max {logit_err:.3e}, evaluate_nll "
           f"{ng:.6f} vs {nc:.6f}")
     if logit_err > 2e-2 or abs(ng - nc) > NLL_RTOL * abs(nc):
@@ -188,20 +342,21 @@ def phase_scoring(device, profile_dir):
                for _ in range(SCORE_BATCHES)]
     torch.cuda.synchronize()
 
-    # The main path: counts cleared just before, read just after.
+    # The scoring path: counts cleared just before, read just after.
     LAUNCHES.clear()
     nlls, secs = [], []
-    for tokens in batches:
-        t0 = time.perf_counter()
-        nll = model.evaluate_nll(tokens)
-        nlls.append(float(nll))  # waits for the device
-        secs.append(time.perf_counter() - t0)
+    with torch.no_grad():
+        for tokens in batches:
+            t0 = time.perf_counter()
+            nll = model.evaluate_nll(tokens)
+            nlls.append(float(nll))  # waits for the device
+            secs.append(time.perf_counter() - t0)
     launches = dict(LAUNCHES)
     print(f"scoring: evaluate_nll per batch {[round(s * 1e3, 3) for s in secs]} ms, "
           f"nll {nlls}, launches {launches}")
-    if launches.get("fused_ce_fwd", 0) != SCORE_BATCHES:
-        fail(f"fused_ce_fwd launched {launches.get('fused_ce_fwd', 0)} times in "
-             f"{SCORE_BATCHES} evaluate_nll calls")
+    if launches != {"fused_ce_fwd": SCORE_BATCHES}:
+        fail(f"scoring launched {launches} in {SCORE_BATCHES} evaluate_nll "
+             f"calls (want fused_ce_fwd once a call, nothing else)")
     if not all(math.isfinite(v) and v > 0 for v in nlls):
         fail(f"evaluate_nll values out of range: {nlls}")
 
@@ -220,20 +375,147 @@ def phase_scoring(device, profile_dir):
           f"{secs[0] * 1e3:.3f} ms; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB)")
 
     if profile_dir:
-        profile_batch(model, batches[0], profile_dir)
+        with torch.no_grad():
+            profile_call(lambda: model.evaluate_nll(batches[0]), "scoring", profile_dir)
+    return launches, model, batches[0]
+
+
+def phase_objective(model, tokens):
+    """torch.autograd.grad of evaluate_nll at bench width: the path of the
+    backward kernels. Returns the launch counts of that path."""
+    import torch
+
+    from k8s_dra_driver_tpu_torch.ops import LAUNCHES
+
+    names = [n for n, _ in model.named_parameters()]
+    params = list(model.parameters())
+    for _ in range(OBJECTIVE_WARMUP):
+        grads = torch.autograd.grad(model.evaluate_nll(tokens), params)
+    del grads
+    torch.cuda.synchronize()
+
+    # The fused-objective path: counts cleared just before, read just after.
+    LAUNCHES.clear()
+    secs = []
+    for _ in range(OBJECTIVE_CALLS):
+        t0 = time.perf_counter()
+        grads = torch.autograd.grad(model.evaluate_nll(tokens), params)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    want = {k: OBJECTIVE_CALLS for k in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw")}
+    print(f"objective: grad(evaluate_nll) per call {[round(s * 1e3, 3) for s in secs]} "
+          f"ms, launches {launches}")
+    if launches != want:
+        fail(f"{OBJECTIVE_CALLS} grad(evaluate_nll) calls launched {launches}, "
+             f"want {want}")
+
+    def loss_fn_grads():
+        loss = model.loss_fn(tokens)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    ref_secs = []
+    for _ in range(OBJECTIVE_WARMUP + OBJECTIVE_CALLS):
+        t0 = time.perf_counter()
+        _, ref = loss_fn_grads()
+        torch.cuda.synchronize()
+        ref_secs.append(time.perf_counter() - t0)
+    worst = (0.0, "")
+    for name, got, exp in zip(names, grads, ref):
+        if not bool(torch.isfinite(got).all()):
+            fail(f"grad(evaluate_nll) {name} has non-finite values")
+        err = float((got - exp).abs().max() / exp.abs().max().clamp(min=1e-6))
+        worst = max(worst, (err, name))
+    print(f"objective: grads vs loss_fn grads, worst leaf {worst[1]} at "
+          f"{worst[0]:.3e} of max|leaf| (tolerance {GRAD_LEAF_ATOL})")
+    if worst[0] > GRAD_LEAF_ATOL:
+        fail("grad(evaluate_nll) disagrees with grad(loss_fn)")
+    obj_ms = sum(secs) / len(secs) * 1e3
+    ref_ms = sum(ref_secs[OBJECTIVE_WARMUP:]) / OBJECTIVE_CALLS * 1e3
+    print(f"objective: {obj_ms:.3f} ms a grad(evaluate_nll) call vs {ref_ms:.3f} ms "
+          f"for loss_fn value and grad (means of {OBJECTIVE_CALLS} calls after "
+          f"{OBJECTIVE_WARMUP} warm-up calls each)")
     return launches
 
 
-def profile_batch(model, tokens, out_dir):
+def phase_training(device, profile_dir):
+    """The single-device training step at bench width."""
+    import dataclasses
+
+    import torch
+
+    from k8s_dra_driver_tpu_torch.models.flagship import (
+        SliceProofConfig,
+        make_sharded_train_step,
+        matmul_param_count,
+    )
+    from k8s_dra_driver_tpu_torch.ops import LAUNCHES
+
+    cfg = SliceProofConfig.bench()
+    step, state, batch = make_sharded_train_step(
+        cfg, [device], batch_per_replica=TRAIN_BATCH, seed=0)
+    tokens = batch["tokens"]
+    with torch.no_grad():
+        want0 = float(state["params"].loss_fn(tokens))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # The training path: counts cleared just before, read just after.
+    LAUNCHES.clear()
+    losses, secs = [], []
+    for _ in range(1 + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(float(loss))  # waits for the device
+        secs.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"training: losses {losses}, step ms {[round(s * 1e3, 3) for s in secs]}, "
+          f"launches {launches}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"training losses not finite or not falling: {losses}")
+    if abs(losses[0] - want0) > FIRST_LOSS_RTOL * abs(want0):
+        fail(f"first step loss {losses[0]} != loss_fn at the initial weights {want0}")
+    n_tok = tokens.numel()
+    step_s = sum(secs[1:]) / TRAIN_STEPS
+    flops = 6.0 * matmul_param_count(cfg) * n_tok
+    print(f"training: {step_s * 1e3:.3f} ms a step (mean of {TRAIN_STEPS} after the "
+          f"first, which took {secs[0] * 1e3:.3f} ms), {n_tok / step_s:.1f} tokens/s, "
+          f"MFU {100 * flops / step_s / PEAK_BF16_FLOPS:.2f}% (6*N*T = {flops:.4g} "
+          f"FLOP, bound {flops / PEAK_BF16_FLOPS * 1e3:.2f} ms), peak {peak:.2f} GiB")
+    if profile_dir:
+        profile_call(lambda: step(state, batch)[1], "training step", profile_dir)
+    del step, state, batch, loss
+    torch.cuda.empty_cache()
+
+    cfg_r = dataclasses.replace(cfg, remat=True)
+    step_r, state_r, batch_r = make_sharded_train_step(
+        cfg_r, [device], batch_per_replica=TRAIN_BATCH, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, loss_r = step_r(state_r, batch_r)
+    loss_r = float(loss_r)
+    secs_r = time.perf_counter() - t0
+    peak_r = torch.cuda.max_memory_allocated() / 2**30
+    print(f"training remat: first loss {loss_r} vs plain {losses[0]} (rel "
+          f"{abs(loss_r - losses[0]) / abs(losses[0]):.3e}), step {secs_r * 1e3:.3f} ms "
+          f"(first step, cold), peak {peak_r:.2f} GiB vs plain {peak:.2f} GiB")
+    if abs(loss_r - losses[0]) > REMAT_RTOL * abs(losses[0]):
+        fail("the remat step's loss differs from the plain step's")
+    return launches
+
+
+def profile_call(fn, label, out_dir):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     os.makedirs(out_dir, exist_ok=True)
-    model.evaluate_nll(tokens)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.evaluate_nll(tokens)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # Kernel rows only: an aten op's row repeats the time of its kernels.
@@ -242,18 +524,20 @@ def profile_batch(model, tokens, out_dir):
                      reverse=True)
     busy_ms = sum(t for t, _, _ in kernels) / 1e3
     table = prof.key_averages().table(sort_by="self_device_time_total", row_limit=40)
-    with open(os.path.join(out_dir, "chip_smoke_profile.txt"), "w") as f:
+    fname = f"chip_smoke_profile_{label.replace(' ', '_')}.txt"
+    with open(os.path.join(out_dir, fname), "w") as f:
         f.write(table)
-    print(f"profile: wall {wall * 1e3:.3f} ms, device busy {busy_ms:.3f} ms, "
+    print(f"profile {label}: wall {wall * 1e3:.3f} ms, device busy {busy_ms:.3f} ms, "
           f"idle share {1 - busy_ms / (wall * 1e3):.3f}")
-    for t, key, count in kernels[:12]:
-        print(f"profile:   {t / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
+    for t, key, count in kernels[:16]:
+        print(f"profile {label}:   {t / 1e3:9.3f} ms  x{count:<4d} {key[:90]}")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="trace one scoring batch and write the table to DIR")
+                        help="trace one scoring batch and one training step and "
+                             "write the tables to DIR")
     args = parser.parse_args()
 
     import torch
@@ -283,11 +567,16 @@ def main() -> int:
 
     # 2. kernels vs plain
     rows = phase_kernels(device)
+    bwd = phase_bwd_kernels(device)
 
-    # 3. the main path
-    launches = phase_scoring(device, args.profile)
+    # 3-5. the main paths
+    launches, model, tokens = phase_scoring(device, args.profile)
+    obj_launches = phase_objective(model, tokens)
+    del model
+    torch.cuda.empty_cache()
+    phase_training(device, args.profile)
 
-    # 4. device
+    # 6. device
     smi = subprocess.run(
         ["nvidia-smi", "-i", str(torch.cuda.current_device()),
          "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -310,6 +599,23 @@ def main() -> int:
         "bound_by": b_by,
         "library_ms": bench["library_ms"],
     }]
+    for name, line in (("fused_ce_dx", 119), ("fused_ce_dw", 144)):
+        row = bwd[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"k8s_dra_driver_tpu_torch/ops/csrc/{name}.cu",
+            "replaces": f"k8s_dra_driver_tpu/ops/fused_ce.py:{line}",
+            "launches": obj_launches.get(name, 0),
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library_call": "torch.autograd.grad of the materializing loss, "
+                            "dx and dw together",
+        })
     print(json.dumps({"kernels": kernels}))
     print(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""Pieces shared by the model families: RMSNorm, causal einsum attention
-and the NLL loss (counterpart of ``k8s_dra_driver_tpu/models/common.py``).
+"""Pieces shared by the model families: RMSNorm, causal einsum attention,
+the NLL loss, the momentum-SGD update and the token batch (counterpart of
+``k8s_dra_driver_tpu/models/common.py``).
 
 The numerics follow the JAX reference step for step, including where it
 rounds to bf16: matmuls take bf16 operands cast from the f32 master
@@ -9,7 +10,9 @@ parameters, while norms, softmax and the loss run in f32.
 from __future__ import annotations
 
 import math
+from typing import Dict, Mapping, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -44,3 +47,28 @@ def nll_loss(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     logp = F.log_softmax(logits[:, :-1].float(), dim=-1)
     tgt = tokens[:, 1:].long()
     return -torch.gather(logp, -1, tgt[..., None])[..., 0].mean()
+
+
+@torch.no_grad()
+def momentum_sgd(params: Mapping[str, torch.Tensor],
+                 momentum: Mapping[str, torch.Tensor],
+                 grads: Mapping[str, torch.Tensor], lr: float,
+                 beta: float = 0.9) -> Tuple[Mapping, Mapping]:
+    """Heavy-ball SGD, by parameter name: ``m = beta*m + g``, then ``p = p -
+    lr*m``, in that order and in f32, as the reference computes it. The JAX
+    side returns new trees; here ``params`` and ``momentum`` are updated in
+    place (no second copy of either) and returned."""
+    for name, p in params.items():
+        m = momentum[name]
+        m.mul_(beta).add_(grads[name])
+        p.sub_(lr * m)
+    return params, momentum
+
+
+def make_token_batch(seed: int, rows: int, seq_len: int, vocab: int,
+                     device: torch.device) -> Dict[str, torch.Tensor]:
+    """{"tokens": [rows, seq_len] int64} drawn as the reference draws them
+    (``np.random.default_rng(seed).integers(0, vocab, ...)``), so both
+    sides train on identical tokens. No mesh: one device."""
+    tokens = np.random.default_rng(seed).integers(0, vocab, size=(rows, seq_len))
+    return {"tokens": torch.from_numpy(tokens).to(device)}

@@ -7,23 +7,30 @@ head_dim], ``wo`` [heads, head_dim, d], ``w1``, ``w2``, ``ln1``, ``ln2``,
 at each matmul as the reference does, so ``convert.params_from_jax`` can
 load a JAX ``init_params`` tree and both sides compute the same function.
 
-This slice runs the single-device forward and the no-grad scoring path
-``evaluate_nll``, whose unembed + cross-entropy is the fused CUDA kernel
-(``ops/fused_ce.py``). Training, ``attention="flash"`` and ``remat`` come
-with later slices.
+This slice runs the single-device forward, the scoring path
+``evaluate_nll`` (differentiable: its unembed + cross-entropy is the
+fused CUDA forward and backward of ``ops/fused_ce.py``), ``remat`` and the
+single-device training step ``sgd_train_step`` (the materializing
+``loss_fn`` and momentum SGD, as in the reference). ``attention="flash"``
+and the dp x tp step come with later slices.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
+from typing import Any, Dict, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from k8s_dra_driver_tpu_torch import DeviceLike, resolve_device
 from k8s_dra_driver_tpu_torch.models.common import (
     causal_einsum_attention,
+    make_token_batch,
+    momentum_sgd,
     nll_loss,
     rmsnorm,
 )
@@ -42,7 +49,8 @@ class SliceProofConfig:
     # "einsum" is the only attention of this slice; "flash" needs the
     # hand-written Hopper flash-attention kernel (ROADMAP, Queue 2).
     attention: str = "einsum"
-    # Rematerialization is part of the training slice (ROADMAP, Queue 1).
+    # Recompute each block's activations in the backward pass
+    # (torch.utils.checkpoint, as the reference uses jax.checkpoint).
     remat: bool = False
 
     @property
@@ -105,10 +113,6 @@ class SliceProof(nn.Module):
             raise NotImplementedError(
                 f"attention={cfg.attention!r} needs the hand-written Hopper "
                 "flash-attention kernel (ROADMAP Queue 2: flash attention)")
-        if cfg.remat:
-            raise NotImplementedError(
-                "remat belongs to the training slice (ROADMAP Queue 1: "
-                "training slice)")
         device = resolve_device(device)
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(cfg.vocab, cfg.d_model, device=device))
@@ -119,7 +123,7 @@ class SliceProof(nn.Module):
         """tokens [b, s] int -> final hidden states [b, s, d_model] bf16."""
         x = self.embed.to(torch.bfloat16)[tokens.long()]
         for layer in self.layers:
-            x = layer(x)
+            x = checkpoint(layer, x, use_reentrant=False) if self.cfg.remat else layer(x)
         return x
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -131,12 +135,13 @@ class SliceProof(nn.Module):
         """Mean next-token NLL through the materialized logits."""
         return nll_loss(self.forward(tokens), tokens)
 
-    @torch.no_grad()
     def evaluate_nll(self, tokens: torch.Tensor, *,
                      block_t: int = 256) -> torch.Tensor:
         """Mean next-token NLL for scoring: the same value as ``loss_fn``,
         but the unembed projection and cross-entropy run in the fused
-        kernel, so the [tokens, vocab] logits never reach device memory."""
+        kernels, so the [tokens, vocab] logits never reach device memory.
+        Differentiable (a pure function in the reference): callers that
+        only score wrap it in ``torch.no_grad()``."""
         cfg = self.cfg
         h = self.forward_hidden(tokens)[:, :-1]
         labels = tokens[:, 1:].reshape(-1).long()
@@ -168,3 +173,40 @@ def init_params(cfg: SliceProofConfig, seed: int = 0,
         else:
             p.normal_(0.0, 0.02, generator=gen)
     return model
+
+
+def sgd_train_step(cfg: SliceProofConfig, state: Dict[str, Any],
+                   batch: Dict[str, torch.Tensor]):
+    """One full training step: forward and backward of the materializing
+    ``loss_fn`` (as the reference differentiates it), then momentum SGD at
+    ``cfg.learning_rate``. ``state`` is ``{"params": SliceProof,
+    "momentum": {name: tensor}}``; returns ``(state, loss)``. The JAX step
+    is functional and returns a new state; this one updates the model's
+    parameters and the momentum in place and returns the same dict."""
+    model, mom = state["params"], state["momentum"]
+    params = dict(model.named_parameters())
+    loss = model.loss_fn(batch["tokens"])
+    grads = torch.autograd.grad(loss, list(params.values()))
+    momentum_sgd(params, mom, dict(zip(params, grads)), cfg.learning_rate)
+    return state, loss.detach()
+
+
+def make_sharded_train_step(cfg: SliceProofConfig, devices: Sequence[DeviceLike],
+                            *, batch_per_replica: int = 2, seed: int = 0):
+    """(step, state, batch) for one device: the state from
+    ``init_params(cfg, seed, device)`` with zero momentum, the batch from
+    ``make_token_batch(seed, batch_per_replica, ...)``; ``step(state,
+    batch)`` is ``sgd_train_step``. More than one device needs the dp x tp
+    step, not ported yet."""
+    if len(devices) > 1:
+        raise NotImplementedError(
+            f"{len(devices)} devices need the dp x tp train step "
+            "(ROADMAP Queue 1 item 6); this slice runs one device")
+    if not devices:
+        raise ValueError("make_sharded_train_step needs one device")
+    device = resolve_device(devices[0])
+    model = init_params(cfg, seed=seed, device=device)
+    state = {"params": model,
+             "momentum": {n: torch.zeros_like(p) for n, p in model.named_parameters()}}
+    batch = make_token_batch(seed, batch_per_replica, cfg.seq_len, cfg.vocab, device)
+    return partial(sgd_train_step, cfg), state, batch

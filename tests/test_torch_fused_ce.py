@@ -1,14 +1,16 @@
-"""Port parity: the fused unembed + cross-entropy forward.
+"""Port parity: the fused unembed + cross-entropy, forward and backward.
 
 The same numpy inputs, made from a seed, go through the JAX package's
-``fused_ce_losses`` (Pallas in interpret mode) and ``reference_ce_losses``
-and through the port on the CPU, where its wrapper runs the plain PyTorch
-version. The CUDA kernel itself is held to that plain version on the card
-by ``chip_smoke.py``.
+``fused_ce_losses`` (Pallas in interpret mode; its gradients through
+``jax.vjp`` of the custom VJP) and ``reference_ce_losses`` and through the
+port on the CPU, where ``FusedCE`` runs the plain PyTorch versions. The
+CUDA kernels themselves are held to those plain versions on the card by
+``chip_smoke.py``.
 """
 
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +26,12 @@ F32_TOL = dict(rtol=1e-5, atol=1e-5)
 # bf16 operands: both sides form exact bf16 products and sum them in f32,
 # so only the summation order differs; losses are ~log(V) ~ 7.
 BF16_TOL = dict(rtol=1e-5, atol=2e-5)
+# Grads in f32: the bound test_jax_ops.py holds the JAX custom VJP to.
+GRAD_F32_TOL = dict(rtol=1e-5, atol=1e-6)
+# Grads in bf16: both sides sum in f32 and round once to bf16; a sum that
+# lands near a rounding boundary may round to the neighbouring bf16 value,
+# one ulp, at most 2**-7 of the value.
+GRAD_BF16_TOL = dict(rtol=2 ** -7, atol=1e-7)
 
 
 def _inputs(seed, T, D, V):
@@ -90,17 +98,114 @@ def test_shape_contract_raises_value_error():
         torch_ce.fused_ce_losses(x, w, labels[:256])
 
 
-def test_requires_grad_is_refused():
-    x, w, labels = map(torch.from_numpy, _inputs(0, 256, 32, 64))
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        torch_ce.fused_ce_losses(x.requires_grad_(), w, labels)
+def _cotangent(seed, labels):
+    """A non-uniform upstream gradient, 0 on rows labelled -1 (padding)."""
+    g = np.random.default_rng(seed).uniform(0.1, 2.0, labels.shape[0])
+    g = (g / labels.shape[0]).astype(np.float32)
+    g[labels < 0] = 0.0
+    return g
+
+
+def _jax_grads(x, w, labels, g):
+    _, vjp = jax.vjp(lambda x, w: jax_ce.fused_ce_losses(
+        x, w, jnp.asarray(labels), 256, 512, True), x, w)
+    return [np.asarray(a.astype(jnp.float32)) for a in vjp(jnp.asarray(g))]
+
+
+def _port_grads(x, w, labels, g):
+    x = x.detach().requires_grad_()
+    w = w.detach().requires_grad_()
+    losses = torch_ce.fused_ce_losses(x, w, torch.from_numpy(labels))
+    return [a.float().numpy() for a in torch.autograd.grad(
+        losses, (x, w), torch.from_numpy(g))]
+
+
+# The shapes of test_jax_ops.py's fused-CE grad tests, with a non-uniform
+# cotangent, and once with padded rows labelled -1 (g = 0 there).
+@pytest.mark.parametrize("T,D,V,pad_every", [
+    (512, 128, 1024, 0), (256, 128, 1000, 0), (256, 128, 1000, 4)])
+def test_grads_match_jax_custom_vjp_f32(T, D, V, pad_every):
+    x, w, labels = _inputs(13, T, D, V)
+    if pad_every:
+        labels[::pad_every] = -1
+    g = _cotangent(5, labels)
+    want_dx, want_dw = _jax_grads(jnp.asarray(x), jnp.asarray(w), labels, g)
+    got_dx, got_dw = _port_grads(torch.from_numpy(x), torch.from_numpy(w), labels, g)
+    assert got_dw.shape == (D, V)
+    np.testing.assert_allclose(got_dx, want_dx, **GRAD_F32_TOL)
+    np.testing.assert_allclose(got_dw, want_dw, **GRAD_F32_TOL)
+
+
+@pytest.mark.parametrize("T,D,V", [(256, 128, 1024), (256, 64, 1000)])
+def test_grads_match_jax_custom_vjp_bf16(T, D, V):
+    x, w, labels = _inputs(17, T, D, V)
+    labels[-3:] = -1
+    g = _cotangent(6, labels)
+    jx = jnp.asarray(x).astype(jnp.bfloat16)
+    jw = jnp.asarray(w).astype(jnp.bfloat16)
+    want_dx, want_dw = _jax_grads(jx, jw, labels, g)
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    tw = torch.from_numpy(w).to(torch.bfloat16)
+    got_dx, got_dw = _port_grads(tx, tw, labels, g)
+    assert got_dw.shape == (D, V)
+    np.testing.assert_allclose(got_dx, want_dx, **GRAD_BF16_TOL)
+    np.testing.assert_allclose(got_dw, want_dw, **GRAD_BF16_TOL)
+
+
+def test_grads_match_materializing_reference():
+    """Where every label is a class, the fused grads are those of the
+    materializing reference (as test_jax_ops.py checks the JAX pair)."""
+    x, w, labels = map(torch.from_numpy, _inputs(19, 256, 64, 1000))
+    g = torch.from_numpy(_cotangent(7, labels.numpy()))
+    got = torch.autograd.grad(
+        torch_ce.fused_ce_losses(x.requires_grad_(), w.requires_grad_(), labels),
+        (x, w), g)
+    want = torch.autograd.grad(torch_ce.reference_ce_losses(x, w, labels), (x, w), g)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **GRAD_F32_TOL)
+
+
+def test_bwd_plain_is_what_autograd_runs():
+    x, w, labels = map(torch.from_numpy, _inputs(23, 256, 64, 700))
+    labels[::5] = -1
+    g = torch.from_numpy(_cotangent(8, labels.numpy()))
+    lse = torch.logsumexp(x @ w, dim=1)
+    dx, dw = torch_ce.fused_ce_bwd_plain(x, w, labels, lse, g, 256, 512)
+    got = torch.autograd.grad(
+        torch_ce.fused_ce_losses(x.requires_grad_(), w.requires_grad_(), labels),
+        (x, w), g)
+    assert dx.shape == x.shape and dw.shape == w.shape
+    np.testing.assert_allclose(got[0].numpy(), dx.numpy(), **GRAD_F32_TOL)
+    np.testing.assert_allclose(got[1].numpy(), dw.numpy(), **GRAD_F32_TOL)
+    # Only the grads asked for are computed.
+    only_w = torch.autograd.grad(
+        torch_ce.fused_ce_losses(x.detach(), w, labels), w, g)[0]
+    np.testing.assert_array_equal(only_w.numpy(), got[1].numpy())
+
+
+def test_cuda_backward_refuses_what_its_kernels_do_not_take():
+    """The backward wrappers check before they build or launch: f32
+    operands and d_model beyond the kernels' accumulator raise."""
+    def args(d, dtype):
+        x = torch.empty(256, d, dtype=dtype, device="meta")
+        w = torch.empty(d, 512, dtype=dtype, device="meta")
+        lab = torch.empty(256, dtype=torch.int32, device="meta")
+        vec = torch.empty(256, device="meta")
+        return x, w, lab, vec, vec
+
+    for kernel in (torch_ce.KERNEL_DX, torch_ce.KERNEL_DW):
+        with pytest.raises(TypeError, match="bf16"):
+            torch_ce._launch_bwd(kernel, *args(64, torch.float32))
+        with pytest.raises(ValueError, match="d_model <= 2048"):
+            torch_ce._launch_bwd(kernel, *args(4096, torch.bfloat16))
 
 
 def test_cpu_path_launches_no_kernel_and_other_devices_raise():
     x, w, labels = map(torch.from_numpy, _inputs(0, 256, 32, 64))
     LAUNCHES.clear()
-    torch_ce.fused_ce_losses(x, w, labels)
-    assert LAUNCHES[torch_ce.KERNEL] == 0
+    losses = torch_ce.fused_ce_losses(x.requires_grad_(), w, labels)
+    losses.sum().backward()
+    assert sum(LAUNCHES.values()) == 0
     with pytest.raises(ValueError, match="CUDA device"):
         torch_ce.fused_ce_losses(x.to("meta"), w.to("meta"), labels.to("meta"))
 
@@ -116,7 +221,9 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_build_dir_is_keyed_inside_the_checkout():
-    assert torch_ce.KERNEL in [p.stem for p in _build.sources()]
+    stems = [p.stem for p in _build.sources()]
+    for kernel in (torch_ce.KERNEL, torch_ce.KERNEL_DX, torch_ce.KERNEL_DW):
+        assert kernel in stems
     d = _build.build_dir()
     assert d.parent == _build.BUILD_ROOT and d == _build.build_dir()
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
