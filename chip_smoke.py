@@ -18,7 +18,13 @@ Phases, each fatal on failure:
     4*1023 tokens padded, the last 4 rows labelled -1 with g=0, g=1/4092
     elsewhere), at V=1000 and at V=1001 with T=512 (the element-wise
     loader), each against fused_ce_dx_plain / fused_ce_dw_plain and
-    against torch.autograd.grad of the materializing reference;
+    against torch.autograd.grad of the materializing reference.
+    flash_fwd, flash_dq and flash_dkv at [batch, heads, seq, head_dim] =
+    [4, 2, 1024, 1024] (the bench attention), [1, 16, 8192, 128] and
+    [2, 4, 256, 64], each against its plain version on the same saved row
+    statistics and against reference_attention (its autograd for the
+    grads); the library call is F.scaled_dot_product_attention; and,
+    untimed, at head_dim 16, 48, 144, 272, 528 and 1008;
  3. scoring: SliceProof at the full width of SliceProofConfig.bench() with
     seeded random weights scores a few batches of 4x1024 tokens through
     evaluate_nll under torch.no_grad(): exactly one fused_ce_fwd a batch
@@ -27,22 +33,34 @@ Phases, each fatal on failure:
  4. fused objective: torch.autograd.grad(evaluate_nll, params) at bench
     width, batch 4x1024: exactly one fused_ce_fwd, fused_ce_dx and
     fused_ce_dw a call; the grads held leaf by leaf to those of loss_fn;
- 5. training: make_sharded_train_step(SliceProofConfig.bench(), [card],
+ 5. flash scoring: the same weights and batches with attention="flash":
+    exactly one flash_fwd a layer and one fused_ce_fwd a batch, no
+    backward kernel; the NLL held to the einsum model's;
+ 6. training: make_sharded_train_step(SliceProofConfig.bench(), [card],
     batch_per_replica=4, seed=0), one warm-up step and five more on the
     same batch, each ending in float(loss): finite losses, the last below
     the first, the first equal to loss_fn at the initial weights; step ms,
     tokens/s, peak memory and MFU. Then one remat=True step from fresh
     seed-0 weights, whose loss must equal the first plain loss;
- 6. device: the card's name and power limit from nvidia-smi.
-Each of phases 3-5 clears the launch counts just before its path and
+ 7. flash training: the same with attention="flash": the loss and grads
+    of loss_fn at the initial weights held to the einsum model's, then
+    six steps with exactly one flash_fwd, flash_dq and flash_dkv a layer a
+    step and no fused-CE kernel, and a remat=True step (flash_fwd twice a
+    layer) whose loss must equal the first plain flash loss;
+ 8. long sequence: bench width at seq 8192, batch 1: evaluate_nll with
+    flash and with einsum on the same weights, tokens/s of both and their
+    NLL agreement;
+ 9. device: the card's name and power limit from nvidia-smi.
+Each of phases 3-8 clears the launch counts just before its path and
 reads them just after.
 
 Tolerances, with their reasons, stand beside their constants below.
 
 The last three lines of standard output are the kernels' JSON record, the
 nvidia-smi line and ``{"ok": true, "device": {...}}``. ``--profile DIR``
-also traces one scoring batch and one training step with torch.profiler
-and writes the tables of device time by kernel to DIR.
+also traces one scoring batch and one training step, each with einsum and
+with flash attention, with torch.profiler and writes the tables of device
+time by kernel to DIR.
 """
 
 from __future__ import annotations
@@ -88,6 +106,24 @@ GRAD_LEAF_ATOL = 2e-2
 FIRST_LOSS_RTOL = 1e-5
 # remat recomputes the same ops: the reference's remat bound.
 REMAT_RTOL = 1e-3
+
+# The flash kernels' shapes [batch, heads, seq, head_dim]: the attention of
+# SliceProofConfig.bench() at batch 4; the head count of the reference's
+# long-sequence table at seq 8192; bench.py check_flash_numerics' shape.
+FLASH_SHAPES = {"bench": (4, 2, 1024, 1024), "long": (1, 16, 8192, 128),
+                "numerics": (2, 4, 256, 64)}
+# Untimed head_dims, one for each accumulator width the kernels are built
+# for (1, 2, 4 and 8 fragments a warp), none a multiple of 128.
+FLASH_HEAD_DIMS = (16, 48, 144, 272, 528, 1008)
+# Flash kernels vs their plain versions and the f32 reference, as max|err|
+# / max|value| per output tensor: the kernels walk key tiles of 16 where
+# the plain versions walk blocks of 128, so p is rounded to bf16 against
+# another running max in the forward, and both round p and ds to bf16
+# before the second products and write bf16 (2**-9 relative); the
+# reference keeps f32 throughout. The repo's bf16 tolerance.
+FLASH_REL_TOL = 2e-2
+# The long-sequence scoring point: batch 1 at seq 8192, calls timed.
+LONG_SEQ, LONG_CALLS = 8192, 2
 
 # Calls of grad(evaluate_nll) before the counted ones: the first two grow
 # the caching allocator (371 and 283 ms against 60 ms steady on an H100).
@@ -297,6 +333,150 @@ def phase_kernels(device):
     return rows
 
 
+def flash_bound_ms(shape, kernel: str):
+    """Least time for one flash kernel at ``shape`` [b, h, s, d]: its
+    [s x s x d] products over the causal half (the pairs key <= query the
+    walk needs), against its bytes (inputs read once, outputs written once)."""
+    b, h, s, d = shape
+    n = b * h * s * d
+    product = 2.0 * b * h * (s * (s + 1) / 2) * d
+    rows = 4.0 * b * h * s  # one f32 per row: l, m or di
+    flops, nbytes = {
+        "flash_fwd": (2 * product, 2.0 * 4 * n + 2 * rows),    # q k v -> o, l, m
+        "flash_dq": (3 * product, 2.0 * 5 * n + 3 * rows),     # q k v do l m di -> dq
+        "flash_dkv": (4 * product, 2.0 * 6 * n + 3 * rows),    # ... -> dk, dv
+    }[kernel]
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def sdpa_backend(q, k, v, scale):
+    """The first of PyTorch's attention backends, in its own order of
+    preference, that takes these inputs: which one the library call ran."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                F.scaled_dot_product_attention(q[:1, :1], k[:1, :1], v[:1, :1],
+                                               is_causal=True, scale=scale)
+            return backend.name
+        except RuntimeError:
+            continue
+    return "none"
+
+
+def check_flash_case(name, shape, gen, timed: bool = True):
+    """The three flash kernels vs their plain versions, on the same inputs
+    and the same saved row statistics, and vs the materializing reference
+    (its autograd for the grads); when ``timed``, time each kernel, its
+    plain version, one library call and the bound. Returns {kernel:
+    {max_abs_err, and when timed: ms, plain_ms, library_ms, bound_ms,
+    bound_by}}."""
+    import torch
+    import torch.nn.functional as F
+
+    from k8s_dra_driver_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = (torch.randn(shape, generator=gen, device=gen.device)
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = float(1.0 / math.sqrt(shape[-1]))
+    o, l, m = fa._launch_fwd(q, k, v, scale)
+    torch.cuda.synchronize()
+    po, pl, pm = fa.flash_fwd_plain(q, k, v, scale)
+    di = (po.float() * do.float()).sum(-1)
+    dk, dv = fa._launch_bwd(fa.KERNEL_DKV, q, k, v, do, pl, pm, di, scale)
+    (dq,) = fa._launch_bwd(fa.KERNEL_DQ, q, k, v, do, pl, pm, di, scale)
+    torch.cuda.synchronize()
+    pdk, pdv = fa.flash_dkv_plain(q, k, v, do, pl, pm, di, scale)
+    pdq = fa.flash_dq_plain(q, k, v, do, pl, pm, di, scale)
+
+    qr, kr, vr = (t.float().requires_grad_() for t in (q, k, v))
+    ref = fa.reference_attention(qr, kr, vr, sm_scale=scale)
+    ref_grads = torch.autograd.grad(ref, (qr, kr, vr), do.float())
+    ref = ref.detach()
+    del qr, kr, vr
+
+    def rel(got, want):
+        got, want = got.float(), want.float()
+        if not bool(torch.isfinite(got).all()):
+            return float("inf"), float("inf")
+        err = float((got - want).abs().max())
+        return err, err / float(want.abs().max())
+
+    row = {"case": name, "shape": list(shape)}
+    out = {}
+    for kernel, pairs in (
+            ("flash_fwd", (("o", o, po, ref), ("l", l, pl, None), ("m", m, pm, None))),
+            ("flash_dq", (("dq", dq, pdq, ref_grads[0]),)),
+            ("flash_dkv", (("dk", dk, pdk, ref_grads[1]), ("dv", dv, pdv, ref_grads[2])))):
+        res = {}
+        for tname, got, plain, want in pairs:
+            err, r = rel(got, plain)
+            res[tname] = {"max_abs_err_vs_plain": err, "rel_err_vs_plain": r}
+            if want is not None:
+                res[tname]["rel_err_vs_reference"] = rel(got, want)[1]
+                res[tname]["plain_rel_err_vs_reference"] = rel(plain, want)[1]
+            worst = max(r, res[tname].get("rel_err_vs_reference", 0.0))
+            if got.shape != plain.shape or worst > FLASH_REL_TOL:
+                fail(f"{kernel} {name} {tname}: error vs plain {r:.3e}, vs "
+                     f"reference {res[tname].get('rel_err_vs_reference')} of "
+                     f"max|value| (tolerance {FLASH_REL_TOL})")
+        row[kernel] = res
+        out[kernel] = {"max_abs_err": max(x["max_abs_err_vs_plain"] for x in res.values())}
+    if timed:
+        del ref, ref_grads
+        torch.cuda.empty_cache()
+        out["flash_fwd"]["ms"] = time_ms(lambda: fa._launch_fwd(q, k, v, scale), 10)
+        out["flash_dkv"]["ms"] = time_ms(lambda: fa._launch_bwd(
+            fa.KERNEL_DKV, q, k, v, do, pl, pm, di, scale), 10)
+        out["flash_dq"]["ms"] = time_ms(lambda: fa._launch_bwd(
+            fa.KERNEL_DQ, q, k, v, do, pl, pm, di, scale), 10)
+        out["flash_fwd"]["plain_ms"] = time_ms(
+            lambda: fa.flash_fwd_plain(q, k, v, scale), 3, warmup=1)
+        out["flash_dkv"]["plain_ms"] = time_ms(
+            lambda: fa.flash_dkv_plain(q, k, v, do, pl, pm, di, scale), 3, warmup=1)
+        out["flash_dq"]["plain_ms"] = time_ms(
+            lambda: fa.flash_dq_plain(q, k, v, do, pl, pm, di, scale), 3, warmup=1)
+        # One PyTorch call each: SDPA forward; its autograd backward (dq,
+        # dk and dv together, the graph kept between runs).
+        row["library_backend"] = sdpa_backend(q, k, v, scale)
+        fwd_lib = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, scale=scale), 10)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, scale=scale)
+        bwd_lib = time_ms(lambda: torch.autograd.grad(
+            ol, (ql, kl, vl), do, retain_graph=True), 10)
+        del ol, ql, kl, vl
+        out["flash_fwd"]["library_ms"] = fwd_lib
+        out["flash_dkv"]["library_ms"] = out["flash_dq"]["library_ms"] = bwd_lib
+        for kernel in ("flash_fwd", "flash_dq", "flash_dkv"):
+            out[kernel]["bound_ms"], out[kernel]["bound_by"] = flash_bound_ms(shape, kernel)
+        row["times"] = out
+    print(f"kernel flash {json.dumps(row)}")
+    return out
+
+
+def phase_flash_kernels(device):
+    """Each flash kernel held to its plain version and to the reference at
+    the bench attention shape, the long-sequence shape and the reference's
+    numerics-check shape, all three timed, and at FLASH_HEAD_DIMS. Returns
+    the bench shape's rows, with max_abs_err the worst over every case."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    rows = {name: check_flash_case(name, shape, gen)
+            for name, shape in FLASH_SHAPES.items()}
+    for d in FLASH_HEAD_DIMS:
+        rows[d] = check_flash_case(f"head_dim_{d}", (1, 2, 256, d), gen, timed=False)
+    bench = rows["bench"]
+    for kernel, row in bench.items():
+        row["max_abs_err"] = max(r[kernel]["max_abs_err"] for r in rows.values())
+    return bench
+
+
 def phase_scoring(device, profile_dir):
     import torch
 
@@ -380,6 +560,19 @@ def phase_scoring(device, profile_dir):
     return launches, model, batches[0]
 
 
+def leaf_errors(names, got, want):
+    """Worst (max|got - want| / max|want|, name) over the leaves."""
+    import torch
+
+    worst = (0.0, "")
+    for name, g, w in zip(names, got, want):
+        if not bool(torch.isfinite(g).all()):
+            fail(f"grad {name} has non-finite values")
+        err = float((g - w).abs().max() / w.abs().max().clamp(min=1e-6))
+        worst = max(worst, (err, name))
+    return worst
+
+
 def phase_objective(model, tokens):
     """torch.autograd.grad of evaluate_nll at bench width: the path of the
     backward kernels. Returns the launch counts of that path."""
@@ -420,12 +613,7 @@ def phase_objective(model, tokens):
         _, ref = loss_fn_grads()
         torch.cuda.synchronize()
         ref_secs.append(time.perf_counter() - t0)
-    worst = (0.0, "")
-    for name, got, exp in zip(names, grads, ref):
-        if not bool(torch.isfinite(got).all()):
-            fail(f"grad(evaluate_nll) {name} has non-finite values")
-        err = float((got - exp).abs().max() / exp.abs().max().clamp(min=1e-6))
-        worst = max(worst, (err, name))
+    worst = leaf_errors(names, grads, ref)
     print(f"objective: grads vs loss_fn grads, worst leaf {worst[1]} at "
           f"{worst[0]:.3e} of max|leaf| (tolerance {GRAD_LEAF_ATOL})")
     if worst[0] > GRAD_LEAF_ATOL:
@@ -436,6 +624,197 @@ def phase_objective(model, tokens):
           f"for loss_fn value and grad (means of {OBJECTIVE_CALLS} calls after "
           f"{OBJECTIVE_WARMUP} warm-up calls each)")
     return launches
+
+
+def flash_model_like(model, cfg):
+    """A SliceProof of ``cfg`` on the card holding ``model``'s weights."""
+    from k8s_dra_driver_tpu_torch.models.flagship import SliceProof
+
+    flash = SliceProof(cfg, device=next(model.parameters()).device)
+    flash.load_state_dict(model.state_dict())
+    return flash
+
+
+def phase_flash_scoring(device, model, profile_dir):
+    """evaluate_nll with attention="flash" at bench width, on the einsum
+    model's weights and the scoring phase's batches. Returns the launch
+    counts of the flash scoring path."""
+    import dataclasses
+
+    import torch
+
+    from k8s_dra_driver_tpu_torch.ops import LAUNCHES
+
+    cfg = dataclasses.replace(model.cfg, attention="flash")
+    flash = flash_model_like(model, cfg)
+    gen = torch.Generator(device=device).manual_seed(1)  # the scoring batches
+    batches = [torch.randint(0, cfg.vocab, (SCORE_BATCH, cfg.seq_len),
+                             generator=gen, device=device)
+               for _ in range(SCORE_BATCHES)]
+    torch.cuda.synchronize()
+
+    # The flash scoring path: counts cleared just before, read just after.
+    LAUNCHES.clear()
+    nlls, secs = [], []
+    with torch.no_grad():
+        for tokens in batches:
+            t0 = time.perf_counter()
+            nlls.append(float(flash.evaluate_nll(tokens)))  # waits for the device
+            secs.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    want = {"flash_fwd": cfg.n_layers * SCORE_BATCHES, "fused_ce_fwd": SCORE_BATCHES}
+    print(f"flash scoring: evaluate_nll per batch {[round(s * 1e3, 3) for s in secs]} "
+          f"ms, nll {nlls}, launches {launches}")
+    if launches != want:
+        fail(f"flash scoring launched {launches} in {SCORE_BATCHES} evaluate_nll "
+             f"calls, want {want}")
+    with torch.no_grad():
+        einsum = [float(model.evaluate_nll(t)) for t in batches]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(nlls, einsum))
+    print(f"flash scoring: nll vs einsum {einsum}, worst rel {worst:.3e} "
+          f"(tolerance {NLL_RTOL})")
+    if not all(math.isfinite(x) for x in nlls) or worst > NLL_RTOL:
+        fail("flash evaluate_nll disagrees with the einsum model's")
+    per_batch = sum(secs[1:]) / (len(secs) - 1)
+    print(f"flash scoring: {SCORE_BATCH * cfg.seq_len / per_batch:.1f} tokens/s "
+          f"({per_batch * 1e3:.3f} ms per batch, first batch {secs[0] * 1e3:.3f} ms)")
+    if profile_dir:
+        with torch.no_grad():
+            profile_call(lambda: flash.evaluate_nll(batches[0]), "flash scoring",
+                         profile_dir)
+    return launches
+
+
+def phase_flash_training(device, profile_dir):
+    """The single-device training step at bench width with attention="flash":
+    its first loss and grads held to the einsum model's at the same weights,
+    then six steps (one warm-up) and a remat step. Returns the launch
+    counts of the six steps."""
+    import dataclasses
+
+    import torch
+
+    from k8s_dra_driver_tpu_torch.models.flagship import (
+        SliceProofConfig,
+        make_sharded_train_step,
+        matmul_param_count,
+    )
+    from k8s_dra_driver_tpu_torch.ops import LAUNCHES
+
+    cfg = dataclasses.replace(SliceProofConfig.bench(), attention="flash")
+    step, state, batch = make_sharded_train_step(
+        cfg, [device], batch_per_replica=TRAIN_BATCH, seed=0)
+    model, tokens = state["params"], batch["tokens"]
+    names = [n for n, _ in model.named_parameters()]
+    einsum = flash_model_like(model, dataclasses.replace(cfg, attention="einsum"))
+    loss_e = einsum.loss_fn(tokens)
+    grads_e = torch.autograd.grad(loss_e, list(einsum.parameters()))
+    del einsum
+    loss_f = model.loss_fn(tokens)
+    grads_f = torch.autograd.grad(loss_f, list(model.parameters()))
+    loss_e, loss_f = float(loss_e.detach()), float(loss_f.detach())
+    worst = leaf_errors(names, grads_f, grads_e)
+    del grads_e, grads_f
+    print(f"flash training: loss_fn {loss_f:.6f} vs einsum {loss_e:.6f} (rel "
+          f"{abs(loss_f - loss_e) / abs(loss_e):.3e}); grads vs einsum, worst leaf "
+          f"{worst[1]} at {worst[0]:.3e} of max|leaf| (tolerance {GRAD_LEAF_ATOL})")
+    if abs(loss_f - loss_e) > NLL_RTOL * abs(loss_e) or worst[0] > GRAD_LEAF_ATOL:
+        fail("the flash model's loss or grads disagree with the einsum model's")
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # The flash training path: counts cleared just before, read just after.
+    LAUNCHES.clear()
+    losses, secs = [], []
+    for _ in range(1 + TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        losses.append(float(loss))  # waits for the device
+        secs.append(time.perf_counter() - t0)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = 1 + TRAIN_STEPS
+    want = {k: cfg.n_layers * steps for k in ("flash_fwd", "flash_dq", "flash_dkv")}
+    print(f"flash training: losses {losses}, step ms {[round(s * 1e3, 3) for s in secs]}, "
+          f"launches {launches}")
+    if launches != want:
+        fail(f"{steps} flash training steps launched {launches}, want {want}")
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"flash training losses not finite or not falling: {losses}")
+    if abs(losses[0] - loss_f) > FIRST_LOSS_RTOL * abs(loss_f):
+        fail(f"first flash step loss {losses[0]} != loss_fn at the initial weights {loss_f}")
+    n_tok = tokens.numel()
+    step_s = sum(secs[1:]) / TRAIN_STEPS
+    flops = 6.0 * matmul_param_count(cfg) * n_tok
+    print(f"flash training: {step_s * 1e3:.3f} ms a step (mean of {TRAIN_STEPS} after "
+          f"the first, which took {secs[0] * 1e3:.3f} ms), {n_tok / step_s:.1f} tokens/s, "
+          f"MFU {100 * flops / step_s / PEAK_BF16_FLOPS:.2f}%, peak {peak:.2f} GiB")
+    if profile_dir:
+        profile_call(lambda: step(state, batch)[1], "flash training step", profile_dir)
+    del step, state, batch, loss, model
+    torch.cuda.empty_cache()
+
+    step_r, state_r, batch_r = make_sharded_train_step(
+        dataclasses.replace(cfg, remat=True), [device],
+        batch_per_replica=TRAIN_BATCH, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    _, loss_r = step_r(state_r, batch_r)
+    loss_r = float(loss_r)
+    remat_launches = dict(LAUNCHES)
+    peak_r = torch.cuda.max_memory_allocated() / 2**30
+    print(f"flash training remat: first loss {loss_r} vs plain {losses[0]} (rel "
+          f"{abs(loss_r - losses[0]) / abs(losses[0]):.3e}), launches {remat_launches}, "
+          f"peak {peak_r:.2f} GiB vs plain {peak:.2f} GiB")
+    if remat_launches.get("flash_fwd") != 2 * cfg.n_layers:
+        fail(f"the flash remat step launched {remat_launches}: want flash_fwd "
+             f"twice a layer (forward and recompute)")
+    if abs(loss_r - losses[0]) > REMAT_RTOL * abs(losses[0]):
+        fail("the flash remat step's loss differs from the plain step's")
+    del step_r, state_r, batch_r
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_long_sequence(device):
+    """One scoring point at seq 8192, batch 1, bench width: flash against
+    einsum on the same weights and tokens, tokens/s for both."""
+    import dataclasses
+
+    import torch
+
+    from k8s_dra_driver_tpu_torch.models.flagship import SliceProofConfig, init_params
+    from k8s_dra_driver_tpu_torch.ops import LAUNCHES
+
+    cfg = dataclasses.replace(SliceProofConfig.bench(), seq_len=LONG_SEQ)
+    flash = init_params(dataclasses.replace(cfg, attention="flash"), seed=0)
+    einsum = flash_model_like(flash, cfg)
+    gen = torch.Generator(device=device).manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab, (1, cfg.seq_len), generator=gen, device=device)
+    torch.cuda.synchronize()
+    result = {}
+    for name, model in (("flash", flash), ("einsum", einsum)):
+        with torch.no_grad():
+            nll = float(model.evaluate_nll(tokens))  # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            for _ in range(LONG_CALLS):
+                nll = float(model.evaluate_nll(tokens))
+            secs = (time.perf_counter() - t0) / LONG_CALLS
+        result[name] = (nll, secs, dict(LAUNCHES),
+                        torch.cuda.max_memory_allocated() / 2**30)
+        print(f"long sequence {name}: seq {cfg.seq_len}, nll {nll:.6f}, "
+              f"{secs * 1e3:.3f} ms a call, {cfg.seq_len / secs:.1f} tokens/s, "
+              f"launches {result[name][2]} in {LONG_CALLS} calls, peak "
+              f"{result[name][3]:.2f} GiB")
+    (nf, sf, lf, _), (ne, se, _, _) = result["flash"], result["einsum"]
+    print(f"long sequence: flash {se / sf:.3f}x the einsum path's tokens/s, nll rel "
+          f"{abs(nf - ne) / abs(ne):.3e} (tolerance {NLL_RTOL})")
+    if lf.get("flash_fwd") != cfg.n_layers * LONG_CALLS or abs(nf - ne) > NLL_RTOL * abs(ne):
+        fail("long-sequence flash scoring disagrees with einsum or skipped the kernel")
 
 
 def phase_training(device, profile_dir):
@@ -568,15 +947,19 @@ def main() -> int:
     # 2. kernels vs plain
     rows = phase_kernels(device)
     bwd = phase_bwd_kernels(device)
+    flash = phase_flash_kernels(device)
 
-    # 3-5. the main paths
+    # 3-8. the main paths
     launches, model, tokens = phase_scoring(device, args.profile)
     obj_launches = phase_objective(model, tokens)
+    phase_flash_scoring(device, model, args.profile)
     del model
     torch.cuda.empty_cache()
     phase_training(device, args.profile)
+    flash_launches = phase_flash_training(device, args.profile)
+    phase_long_sequence(device)
 
-    # 6. device
+    # 9. device
     smi = subprocess.run(
         ["nvidia-smi", "-i", str(torch.cuda.current_device()),
          "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -615,6 +998,29 @@ def main() -> int:
             "library_ms": row["library_ms"],
             "library_call": "torch.autograd.grad of the materializing loss, "
                             "dx and dw together",
+        })
+    # The library Pallas kernels, jax 0.9.0's flash_attention.py.
+    lib = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+    for name, line, call in (
+            ("flash_fwd", 342, "F.scaled_dot_product_attention, is_causal"),
+            ("flash_dq", 1146, "autograd backward of F.scaled_dot_product_attention, "
+                               "dq, dk and dv together"),
+            ("flash_dkv", 796, "autograd backward of F.scaled_dot_product_attention, "
+                               "dq, dk and dv together")):
+        row = flash[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"k8s_dra_driver_tpu_torch/ops/csrc/{name}.cu",
+            "replaces": f"{lib}:{line}",
+            "launches": flash_launches.get(name, 0),
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library_call": call,
         })
     print(json.dumps({"kernels": kernels}))
     print(smi.stdout.strip().splitlines()[0])

@@ -11,8 +11,10 @@ This slice runs the single-device forward, the scoring path
 ``evaluate_nll`` (differentiable: its unembed + cross-entropy is the
 fused CUDA forward and backward of ``ops/fused_ce.py``), ``remat`` and the
 single-device training step ``sgd_train_step`` (the materializing
-``loss_fn`` and momentum SGD, as in the reference). ``attention="flash"``
-and the dp x tp step come with later slices.
+``loss_fn`` and momentum SGD, as in the reference), with either
+attention: ``"einsum"`` or ``"flash"`` (the causal flash-attention
+kernels of ``ops/flash_attention.py``, forward and backward). The dp x tp
+step comes with a later slice.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from dataclasses import dataclass
 from functools import partial
 from typing import Any, Dict, Sequence
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -34,6 +37,7 @@ from k8s_dra_driver_tpu_torch.models.common import (
     nll_loss,
     rmsnorm,
 )
+from k8s_dra_driver_tpu_torch.ops.flash_attention import BLOCK, flash_attention
 from k8s_dra_driver_tpu_torch.ops.fused_ce import fused_ce_losses
 
 
@@ -46,8 +50,8 @@ class SliceProofConfig:
     d_ff: int = 512
     seq_len: int = 64
     learning_rate: float = 1e-3
-    # "einsum" is the only attention of this slice; "flash" needs the
-    # hand-written Hopper flash-attention kernel (ROADMAP, Queue 2).
+    # "einsum" materializes the scores; "flash" runs the flash-attention
+    # kernels (seq_len must divide by their 128 block, as in the reference).
     attention: str = "einsum"
     # Recompute each block's activations in the backward pass
     # (torch.utils.checkpoint, as the reference uses jax.checkpoint).
@@ -82,12 +86,14 @@ def matmul_param_count(cfg: SliceProofConfig) -> int:
 
 
 class Block(nn.Module):
-    """One pre-norm transformer layer: einsum attention, then a GELU FFN."""
+    """One pre-norm transformer layer: einsum or flash attention, then a
+    GELU FFN."""
 
     def __init__(self, cfg: SliceProofConfig, device: torch.device):
         super().__init__()
         d, h, k, f = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
         self.head_dim = k
+        self.flash = cfg.attention == "flash"
         self.wqkv = nn.Parameter(torch.empty(d, 3, h, k, device=device))
         self.wo = nn.Parameter(torch.empty(h, k, d, device=device))
         self.w1 = nn.Parameter(torch.empty(d, f, device=device))
@@ -97,7 +103,15 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = rmsnorm(x, self.ln1)
-        x = causal_einsum_attention(self.wqkv, self.wo, x, h, self.head_dim)
+        if self.flash:
+            # [b, h, s, k] straight out of the projection, as the reference.
+            qkv = torch.einsum("bsd,dthk->tbhsk", h, self.wqkv.to(torch.bfloat16))
+            attn = flash_attention(qkv[0], qkv[1], qkv[2], causal=True,
+                                   sm_scale=float(1.0 / np.sqrt(self.head_dim)))
+            attn = attn.transpose(1, 2)  # -> [b, s, h, k]
+            x = x + torch.einsum("bshk,hkd->bsd", attn, self.wo.to(torch.bfloat16))
+        else:
+            x = causal_einsum_attention(self.wqkv, self.wo, x, h, self.head_dim)
         h = rmsnorm(x, self.ln2)
         # jax.nn.gelu defaults to the tanh approximation.
         ff = F.gelu(h @ self.w1.to(torch.bfloat16), approximate="tanh")
@@ -109,10 +123,12 @@ class SliceProof(nn.Module):
 
     def __init__(self, cfg: SliceProofConfig, device: DeviceLike = None):
         super().__init__()
-        if cfg.attention != "einsum":
-            raise NotImplementedError(
-                f"attention={cfg.attention!r} needs the hand-written Hopper "
-                "flash-attention kernel (ROADMAP Queue 2: flash attention)")
+        if cfg.attention not in ("einsum", "flash"):
+            raise ValueError(f"attention={cfg.attention!r}: 'einsum' or 'flash'")
+        if cfg.attention == "flash" and cfg.seq_len % BLOCK:
+            raise ValueError(
+                f"attention='flash' needs seq_len ({cfg.seq_len}) % {BLOCK} == 0: "
+                f"the reference flash kernel's block is {BLOCK}")
         device = resolve_device(device)
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(cfg.vocab, cfg.d_model, device=device))

@@ -6,7 +6,8 @@ by ``nvcc`` for ``sm_90a`` and loaded with ``ctypes``. Libraries land in
 ``.gitignore``), keyed on a hash of every source and the flags, so an
 edited source is rebuilt and an unchanged one is reused. All missing
 libraries are compiled in parallel, one ``nvcc`` per source. A missing
-``nvcc`` or a failed compile raises: there is no fallback.
+``nvcc`` or a failed compile raises: there is no fallback. ``launch``
+calls a kernel's C entry point and counts the launch in ``ops.LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -19,6 +20,10 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, List
+
+import torch
+
+from k8s_dra_driver_tpu_torch.ops import LAUNCHES
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -98,3 +103,22 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build_dir() / f"lib{name}.so"))
         _LIBS[name] = lib
     return lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the C function ``name`` of ``lib<name>.so`` with ``args``
+    (tensors pass their data pointers, ints and floats pass as C ints and
+    floats) and the current CUDA stream of ``device``; raise if it returns
+    a CUDA error, else count one launch of ``name``."""
+    fn = getattr(load(name), name)
+    kinds = {int: ctypes.c_int, float: ctypes.c_float}
+    fn.argtypes = [ctypes.c_void_p if isinstance(a, torch.Tensor) else kinds[type(a)]
+                   for a in args] + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args),
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1

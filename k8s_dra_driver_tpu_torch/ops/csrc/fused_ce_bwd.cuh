@@ -13,22 +13,24 @@
 //     p = (where(v < V, exp(logit - lse[t]), 0) - (v == label[t])) * g[t]
 // rounded to bf16 for the second tensor-core product (f32 accumulate).
 //
-// Products are mma.sync m16n8k16 (bf16 in, f32 accumulate) on fragments
-// loaded with ldmatrix, whose .trans form reads an operand stored the
-// other way round: one shared tile serves as B of x @ w and of p @ w^T
-// (or as A of x @ w and of x^T @ p) with no transposed copy. A [16, 16]
-// tile of w columns is stored as 16 rows of 32 bytes with the two 16-byte
-// halves of rows 4-7 and 12-15 swapped (`wsw`), so the eight rows that
-// one ldmatrix phase reads fall in eight distinct bank groups.
+// Products are mma.sync m16n8k16 (bf16 in, f32 accumulate, from
+// mma_tiles.cuh) on fragments loaded with ldmatrix, whose .trans form
+// reads an operand stored the other way round: one shared tile serves as
+// B of x @ w and of p @ w^T (or as A of x @ w and of x^T @ p) with no
+// transposed copy. A [16, 16] tile of w columns is stored as 16 rows of
+// 32 bytes with the two 16-byte halves of rows 4-7 and 12-15 swapped
+// (`wsw`), so the eight rows that one ldmatrix phase reads fall in eight
+// distinct bank groups.
 
 #pragma once
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "mma_tiles.cuh"
 
 namespace fused_ce_bwd {
+
+using namespace mma_tiles;
 
 using bf16 = __nv_bfloat16;
 
@@ -54,71 +56,6 @@ constexpr int TAIL_BYTES = WARPS * FRAG * 4 + TILE * PLD * 2;
 __device__ __forceinline__ int wsw(int k, int half) {
   return k * TILE + ((half ^ ((k >> 2) & 1)) << 3);
 }
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zeroed
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Four 8x8 bf16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8 and receives, of each matrix, row l / 4, columns 2(l % 4) and +1
-// (.trans: rows 2(l % 4) and +1, column l / 4).
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a)
-      : "memory");
-}
-
-// d[16x8] += a[16x16] @ b[16x8], bf16 in, f32 accumulate. Lane l holds
-// d rows l/4 and l/4 + 8, columns 2(l % 4) and +1.
-__device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Per-lane ldmatrix offsets (elements) into the operand layouts used here.
-struct Lanes {
-  int a_m, a_k0;      // A from an m-major tile: row a_m, column a_k0
-  int bt_k, bt_half;  // B from a k-major [dp][16] tile (w, p), .trans
-  int bn_n, bn_half;  // B from an n-major [dp][16] tile (w as w^T)
-  int at_k, at_m0;    // A from a k-major row tile (x as x^T), .trans
-  __device__ explicit Lanes(int lane) {
-    const int r = lane % 8, j = lane / 8;
-    a_m = r + (j % 2) * 8;
-    a_k0 = (j / 2) * 8;
-    bt_k = r + (j % 2) * 8;
-    bt_half = j / 2;
-    bn_n = r + (j / 2) * 8;
-    bn_half = j % 2;
-    at_k = r + (j / 2) * 8;
-    at_m0 = (j % 2) * 8;
-  }
-};
 
 // x[t0:t0+16, 0:dp] -> dst [16][pitch], zero outside [T, D]. VEC: D is a
 // multiple of 8 and x 16-byte aligned, so each 8-element chunk is wholly

@@ -19,13 +19,12 @@ must lie in ``[0, vocab)``.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Iterator, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from k8s_dra_driver_tpu_torch.ops import LAUNCHES, _build
+from k8s_dra_driver_tpu_torch.ops import _build
 
 KERNEL = "fused_ce_fwd"
 KERNEL_DX = "fused_ce_dx"
@@ -127,16 +126,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor):
     vocab = w.shape[1]
     lse = torch.empty(t_dim, dtype=torch.float32, device=x.device)
     picked = torch.empty_like(lse)
-    fn = _build.load(KERNEL).fused_ce_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), labels32.data_ptr(),
-                 lse.data_ptr(), picked.data_ptr(), t_dim, d, vocab, stream)
-    if err != 0:
-        raise RuntimeError(f"fused_ce_fwd launch failed: CUDA error {err}")
-    LAUNCHES[KERNEL] += 1
+    _build.launch(KERNEL, x.device, x, w, labels32, lse, picked, t_dim, d, vocab)
     return lse, picked
 
 
@@ -154,17 +144,7 @@ def _launch_bwd(kernel: str, x: torch.Tensor, w: torch.Tensor,
     lse, g = lse.float().contiguous(), g.float().contiguous()
     shape = (t_dim, d) if kernel == KERNEL_DX else (d, vocab)
     out = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
-    fn = getattr(_build.load(kernel), kernel)
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w.data_ptr(), labels32.data_ptr(),
-                 lse.data_ptr(), g.data_ptr(), out.data_ptr(),
-                 t_dim, d, vocab, stream)
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
-    LAUNCHES[kernel] += 1
+    _build.launch(kernel, x.device, x, w, labels32, lse, g, out, t_dim, d, vocab)
     return out
 
 

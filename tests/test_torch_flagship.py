@@ -15,12 +15,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 import k8s_dra_driver_tpu_torch as port
 from k8s_dra_driver_tpu.models import flagship as jflag
 from k8s_dra_driver_tpu_torch.graft_entry import entry
 from k8s_dra_driver_tpu_torch.models import flagship as tflag
 from k8s_dra_driver_tpu_torch.models.convert import params_from_jax
+from k8s_dra_driver_tpu_torch.ops import LAUNCHES
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -138,12 +140,73 @@ def test_entry_runs_forward_on_cpu():
     assert bool(torch.isfinite(logits).all())
 
 
-@pytest.mark.parametrize("field,value,item", [
-    ("attention", "flash", "flash attention"),
-])
-def test_later_slice_options_raise(field, value, item):
-    cfg = dataclasses.replace(tflag.SliceProofConfig.tiny(), **{field: value})
-    with pytest.raises(NotImplementedError, match=item):
+# attention="flash": the smallest config the reference's flash kernel takes
+# (seq a multiple of its 128 block), one layer, batch 1: in TPU interpret
+# mode its forward takes ~3 s on a CPU.
+FLASH_SMALL = dict(vocab=256, d_model=128, n_heads=2, n_layers=1, d_ff=256,
+                   seq_len=128, attention="flash")
+
+
+@pytest.fixture(scope="module")
+def flash_pair():
+    jcfg = jflag.SliceProofConfig(**FLASH_SMALL)
+    jparams = jflag.init_params(jcfg, seed=0)
+    model = tflag.SliceProof(tflag.SliceProofConfig(**FLASH_SMALL), device="cpu")
+    model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jparams)))
+    tokens = np.random.default_rng(1).integers(0, jcfg.vocab, (1, jcfg.seq_len))
+    return jcfg, jparams, model, tokens.astype(np.int32)
+
+
+def test_flash_forward_logits_match_jax(flash_pair):
+    jcfg, jparams, model, tokens = flash_pair
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jflag.forward(jcfg, jparams, jnp.asarray(tokens)))
+    LAUNCHES.clear()
+    with torch.no_grad():
+        got = model(torch.from_numpy(tokens)).numpy()
+    assert sum(LAUNCHES.values()) == 0  # the CPU runs the plain versions
+    assert got.shape == want.shape and got.dtype == np.float32
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err < LOGIT_REL_TOL, err
+
+
+def test_flash_evaluate_nll_matches_jax(flash_pair):
+    jcfg, jparams, model, tokens = flash_pair
+    with pltpu.force_tpu_interpret_mode():
+        want = float(jflag.evaluate_nll(jcfg, jparams, jnp.asarray(tokens),
+                                        interpret=True))
+    with torch.no_grad():
+        got = float(model.evaluate_nll(torch.from_numpy(tokens)))
+    np.testing.assert_allclose(got, want, rtol=NLL_RTOL)
+
+
+def test_flash_matches_einsum_attention(flash_pair):
+    """The two attentions compute one function; the einsum path rounds the
+    scores to bf16 and the flash path does not, so they agree at bf16
+    level (the reference's check_flash_numerics tolerance)."""
+    _, _, model, tokens = flash_pair
+    einsum = tflag.SliceProof(dataclasses.replace(model.cfg, attention="einsum"),
+                              device="cpu")
+    einsum.load_state_dict(model.state_dict())
+    t = torch.from_numpy(tokens)
+    with torch.no_grad():
+        a, b = model(t), einsum(t)
+        na, nb = float(model.evaluate_nll(t)), float(einsum.evaluate_nll(t))
+    assert float((a - b).abs().max() / b.abs().max()) < LOGIT_REL_TOL
+    np.testing.assert_allclose(na, nb, rtol=2e-2)
+
+
+@pytest.mark.parametrize("seq_len", [64, 200])
+def test_flash_needs_seq_len_a_multiple_of_128(seq_len):
+    cfg = dataclasses.replace(tflag.SliceProofConfig.tiny(), attention="flash",
+                              seq_len=seq_len)
+    with pytest.raises(ValueError, match="% 128"):
+        tflag.SliceProof(cfg, device="cpu")
+
+
+def test_unknown_attention_raises():
+    cfg = dataclasses.replace(tflag.SliceProofConfig.tiny(), attention="ring")
+    with pytest.raises(ValueError, match="'einsum' or 'flash'"):
         tflag.SliceProof(cfg, device="cpu")
 
 

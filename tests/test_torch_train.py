@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
 
 from k8s_dra_driver_tpu.models import common as jcommon
 from k8s_dra_driver_tpu.models import flagship as jflag
@@ -246,3 +247,75 @@ def test_state_to_jax_tree_inverts_params_from_jax():
     assert jax.tree.structure(back) == jax.tree.structure(tree)
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(tree)):
         np.testing.assert_array_equal(a, b)
+
+
+# attention="flash" at the smallest size the reference's flash kernel takes
+# (seq a multiple of its 128 block), one layer, batch 1: one JAX training
+# step in TPU interpret mode takes ~10 s on a CPU.
+FLASH_SMALL = dict(vocab=256, d_model=128, n_heads=2, n_layers=1, d_ff=256,
+                   seq_len=128, attention="flash")
+
+
+@pytest.fixture(scope="module")
+def flash_step():
+    """One JAX sgd_train_step from zero momentum, with the flash kernel run
+    in TPU interpret mode: (initial params, tokens, loss, params after,
+    momentum after). The momentum after one step is the grads."""
+    jcfg = jflag.SliceProofConfig(**FLASH_SMALL)
+    jparams = jflag.init_params(jcfg, seed=0)
+    tokens = np.random.default_rng(1).integers(
+        0, jcfg.vocab, (1, jcfg.seq_len)).astype(np.int32)
+    p0 = jax.tree.map(np.asarray, jparams)
+    state = {"params": jparams, "momentum": jax.tree.map(jnp.zeros_like, jparams)}
+    with pltpu.force_tpu_interpret_mode():
+        state, loss = jax.jit(partial(jflag.sgd_train_step, jcfg))(
+            state, {"tokens": jnp.asarray(tokens)})
+        loss = float(loss)
+    return p0, tokens, loss, state["params"], state["momentum"]
+
+
+# The port's remat step is held to the JAX step without remat: remat
+# recomputes the same function, and the JAX flash kernel cannot run under
+# jax.checkpoint on a CPU (interpret mode's ordered callbacks are effects
+# that remat refuses).
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_flash_loss_and_grads_match_jax(flash_step, remat):
+    p0, tokens, want_loss, _, want_grads = flash_step
+    model = _port_model(tflag.SliceProofConfig(**FLASH_SMALL, remat=remat), p0)
+    LAUNCHES.clear()
+    loss = model.loss_fn(torch.from_numpy(tokens))
+    got = _port_grads(model, loss)
+    assert sum(LAUNCHES.values()) == 0  # the CPU runs the plain versions
+    np.testing.assert_allclose(float(loss.detach()), want_loss, rtol=LOSS_RTOL)
+    _assert_trees_close(got, want_grads)
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+def test_flash_sgd_step_matches_jax(flash_step, remat):
+    p0, tokens, want_loss, want_params, want_mom = flash_step
+    tcfg = tflag.SliceProofConfig(**FLASH_SMALL, remat=remat)
+    model = _port_model(tcfg, p0)
+    state = {"params": model,
+             "momentum": {n: torch.zeros_like(p) for n, p in model.named_parameters()}}
+    state, loss = tflag.sgd_train_step(tcfg, state, {"tokens": torch.from_numpy(tokens)})
+    np.testing.assert_allclose(float(loss), want_loss, rtol=LOSS_RTOL)
+    _assert_trees_close(state_to_jax_tree(model.state_dict()), want_params)
+    _assert_trees_close(state_to_jax_tree(state["momentum"]), want_mom)
+
+
+def test_flash_train_step_reduces_loss_and_remat_matches():
+    cfg = tflag.SliceProofConfig(**FLASH_SMALL)
+    losses = {}
+    for remat in (False, True):
+        step, state, batch = tflag.make_sharded_train_step(
+            dataclasses.replace(cfg, remat=remat), ["cpu"], seed=0)
+        losses[remat] = [float(step(state, batch)[1]) for _ in range(3)]
+    assert all(np.isfinite(losses[False])) and losses[False][-1] < losses[False][0]
+    np.testing.assert_allclose(losses[True], losses[False], rtol=REMAT_RTOL)
+
+
+def test_flash_evaluate_nll_grads_match_loss_fn_grads():
+    model = tflag.init_params(tflag.SliceProofConfig(**FLASH_SMALL), seed=1, device="cpu")
+    t = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (2, 128)))
+    _assert_trees_close(_port_grads(model, model.evaluate_nll(t)),
+                        _port_grads(model, model.loss_fn(t)))
