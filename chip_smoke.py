@@ -50,8 +50,20 @@ Phases, each fatal on failure:
  8. long sequence: bench width at seq 8192, batch 1: evaluate_nll with
     flash and with einsum on the same weights, tokens/s of both and their
     NLL agreement;
- 9. device: the card's name and power limit from nvidia-smi.
-Each of phases 3-8 clears the launch counts just before its path and
+ 9. standalone ops (the kernels' checks run with phase 2): rmsnorm at [4,
+    1024, 2048] in bf16 and f32, and tiled_matmul at the FFN half's four
+    bf16 products (forward, and the two VJP products with a transposed
+    operand) and at [4096, 2048] @ [2048, 2048] in f32, each timed beside
+    its plain version, one library call (F.rms_norm, torch.matmul) and the
+    bound; untimed at small, odd, ragged, unaligned, mixed-dtype and empty
+    shapes. Then the whole-op path: the FFN half of a Block built from
+    rmsnorm and tiled_matmul alone, on seed-0 bench weights cast to bf16
+    and a [4096, 2048] bf16 row block, forward and autograd to x, ln2, w1
+    and w2: exactly one rmsnorm and two tiled_matmul launches forward and
+    four tiled_matmul backward; y and the grads held to the model's own
+    ffn_half (cuBLAS); ms of both chains;
+10. device: the card's name and power limit from nvidia-smi.
+Each of phases 3-9 clears the launch counts just before its path and
 reads them just after.
 
 Tolerances, with their reasons, stand beside their constants below.
@@ -76,6 +88,7 @@ import time
 # H100 SXM published dense peaks (NVIDIA data sheet), for the bound.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
+PEAK_F32_FLOPS = 67e12  # non-tensor FP32
 
 SCORE_BATCH, SCORE_BATCHES = 4, 4
 # The fused CE's shape at bench width: evaluate_nll on 4x1024 tokens gives
@@ -130,19 +143,41 @@ LONG_SEQ, LONG_CALLS = 8192, 2
 OBJECTIVE_WARMUP, OBJECTIVE_CALLS = 2, 3
 TRAIN_BATCH, TRAIN_STEPS = 4, 5  # per step: 4x1024 tokens; plus one warm-up
 
+# The standalone ops at bench width: RMSNorm over a [4, 1024, 2048] batch
+# of hidden states; the FFN half's products on 4x1024 token rows, d_model
+# 2048, d_ff 16384; the f32 product at [4096, 2048] @ [2048, 2048].
+OPS_TOKENS, OPS_D, OPS_FF = 4096, 2048, 16384
+# rmsnorm kernel vs plain version, per element: the row's f32 sum of
+# squares is taken in another order, so r differs in its last bits; a bf16
+# output may then round to the neighbouring value, one ulp, at most 2**-7
+# of the value. f32: the bound the reference's own test holds its kernel to.
+RMS_TOL = {"torch.bfloat16": dict(rtol=2 ** -7, atol=1e-6),
+           "torch.float32": dict(rtol=1e-5, atol=1e-5)}
+# tiled_matmul kernel vs plain version, max|err| / max|plain|, by output
+# dtype: both sum exact products in f32 in another order; a bf16 output
+# then rounds once (one ulp, 2**-7 relative at most). f32 must be real f32:
+# sums of K products in another order differ by ~1e-7 relative, where TF32
+# would differ by ~1e-3.
+MATMUL_REL_TOL = {"torch.bfloat16": 2 ** -7, "torch.float32": 1e-5}
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
 
 
-def time_ms(fn, iters: int, warmup: int = 2) -> float:
+def time_ms(fn, iters: int, warmup: int = 2, queued: bool = False) -> float:
+    """Device ms a call of ``fn``. ``queued`` holds the calls back behind a
+    sleeping kernel so that the host's launch cost does not space them out:
+    for kernels of a few microseconds, faster than their host-side wrapper."""
     import torch
 
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(200_000 * iters)  # ~0.1 ms a call at ~2 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -885,6 +920,244 @@ def phase_training(device, profile_dir):
     return launches
 
 
+def rmsnorm_bound_ms(x, g):
+    """Bytes: x read and y written once, the gain once; operations: about
+    four f32 flops an element."""
+    nbytes = 2.0 * x.numel() * x.element_size() + g.numel() * g.element_size()
+    t_ops, t_bytes = 4.0 * x.numel() / PEAK_F32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def matmul_bound_ms(m: int, n: int, k: int, dtype):
+    import torch
+
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    size = torch.empty((), dtype=dtype).element_size()
+    t_ops = 2.0 * m * n * k / peak
+    t_bytes = size * (m * k + k * n + m * n) / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_rmsnorm_case(name, x, g, timed: bool):
+    """The rmsnorm kernel vs rmsnorm_plain on the same inputs; when
+    ``timed``, the kernel's, plain version's and F.rms_norm's ms and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from k8s_dra_driver_tpu_torch.ops import kernels as ok
+
+    got = ok.rmsnorm(x, g)
+    torch.cuda.synchronize()
+    plain = ok.rmsnorm_plain(x, g)
+    err = float((got.float() - plain.float()).abs().max())
+    tol = RMS_TOL[str(x.dtype)]
+    if (got.dtype != plain.dtype or got.shape != plain.shape
+            or not bool(torch.isfinite(got).all())
+            or not bool(torch.isclose(got.float(), plain.float(), **tol).all())):
+        fail(f"rmsnorm kernel vs plain, {name}: {got.dtype} {tuple(got.shape)}, "
+             f"max abs err {err:.3e} (tolerance {tol})")
+    row = {"case": name, "shape": list(x.shape), "x": str(x.dtype), "gain": str(g.dtype),
+           "max_abs_err": err}
+    if timed:
+        d = x.shape[-1]
+        row["ms"] = time_ms(lambda: ok.rmsnorm(x, g), 50, queued=True)
+        row["plain_ms"] = time_ms(lambda: ok.rmsnorm_plain(x, g), 20, queued=True)
+        row["library_ms"] = time_ms(
+            lambda: F.rms_norm(x, (d,), g, eps=1e-6), 50, queued=True)
+        row["bound_ms"], row["bound_by"] = rmsnorm_bound_ms(x, g)
+    print(f"kernel rmsnorm {json.dumps(row)}")
+    return row
+
+
+def check_matmul_case(name, a, b, timed: bool):
+    """The tiled_matmul kernel vs tiled_matmul_plain on the same operands
+    (strides included); when ``timed``, the kernel's, plain version's and
+    torch.matmul's ms and the bound."""
+    import torch
+
+    from k8s_dra_driver_tpu_torch.ops import kernels as ok
+
+    got = ok.tiled_matmul(a, b)
+    torch.cuda.synchronize()
+    plain = ok.tiled_matmul_plain(a, b)
+    ct = torch.promote_types(a.dtype, b.dtype)
+    err = float((got.float() - plain.float()).abs().max()) if plain.numel() else 0.0
+    scale = float(plain.float().abs().max()) if plain.numel() else 0.0
+    rel = err / scale if scale else err
+    tol = MATMUL_REL_TOL[str(plain.dtype)]  # the output's dtype rounds last
+    if (got.dtype != plain.dtype or got.shape != plain.shape
+            or not bool(torch.isfinite(got).all()) or rel > tol):
+        fail(f"tiled_matmul kernel vs plain, {name}: {got.dtype} {tuple(got.shape)}, "
+             f"error {rel:.3e} of max|plain| (tolerance {tol})")
+    (m, k), n = a.shape, b.shape[1]
+    row = {"case": name, "M": m, "N": n, "K": k, "a": str(a.dtype), "b": str(b.dtype),
+           "a_strides": list(a.stride()), "b_strides": list(b.stride()),
+           "max_abs_err": err, "rel_err": rel}
+    if timed:
+        row["ms"] = time_ms(lambda: ok.tiled_matmul(a, b), 10, queued=True)
+        row["plain_ms"] = time_ms(lambda: ok.tiled_matmul_plain(a, b), 3, warmup=1,
+                                  queued=True)
+        row["library_ms"] = time_ms(lambda: torch.matmul(a, b), 10, queued=True)
+        row["bound_ms"], row["bound_by"] = matmul_bound_ms(m, n, k, ct)
+    print(f"kernel tiled_matmul {json.dumps(row)}")
+    return row
+
+
+def phase_ops_kernels(device):
+    """The rmsnorm and tiled_matmul kernels held to their plain versions at
+    the standalone ops' bench shapes (timed) and at small, ragged,
+    unaligned and empty shapes. Returns the rows of the kernels line's
+    shapes (bf16 rmsnorm over [4, 1024, 2048]; the FFN's first product),
+    with max_abs_err the worst over every case."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, dtype=bf, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=device)).to(dtype)
+
+    T, D, FF = OPS_TOKENS, OPS_D, OPS_FF
+    rms = [check_rmsnorm_case("bench_bf16", randn(4, T // 4, D), randn(D, dtype=bf), True),
+           check_rmsnorm_case("bench_f32", randn(4, T // 4, D, dtype=f32),
+                              randn(D, dtype=f32), True)]
+    for name, shape, xd, gd in (("64x128", (64, 128), f32, f32),
+                                ("3x7x128", (3, 7, 128), f32, bf),
+                                ("3x7x128_bf16", (3, 7, 128), bf, f32),
+                                ("d129", (33, 129), bf, bf),
+                                ("d129_f32", (33, 129), f32, f32),
+                                ("d7", (5, 7), bf, f32),
+                                ("rows1", (1, D), bf, bf)):
+        rms.append(check_rmsnorm_case(name, randn(*shape, dtype=xd),
+                                      1.0 + randn(shape[-1], dtype=gd, scale=0.1), False))
+
+    h, w1, w2 = randn(T, D), randn(D, FF, scale=0.02), randn(FF, D, scale=0.02)
+    g, dy = randn(T, FF), randn(T, FF)
+    mm = [check_matmul_case("ffn_w1", h, w1, True),
+          check_matmul_case("ffn_w2", g, w2, True),
+          check_matmul_case("vjp_dA_dY_w1T", dy, w1.T, True),
+          check_matmul_case("vjp_dB_hT_dY", h.T, dy, True),
+          check_matmul_case("f32", randn(T, D, dtype=f32),
+                            randn(D, D, dtype=f32, scale=0.02), True)]
+    del g, dy
+    for dt in (bf, f32):
+        mm.append(check_matmul_case(f"13x7x9_ones_{dt}", torch.ones(13, 7, dtype=dt, device=device),
+                                    torch.ones(7, 9, dtype=dt, device=device), False))
+        mm.append(check_matmul_case(f"1000x999x1001_{dt}", randn(1000, 999, dtype=dt),
+                                    randn(999, 1001, dtype=dt), False))
+        mm.append(check_matmul_case(f"1000x999x1001_transposed_{dt}", randn(999, 1000, dtype=dt).T,
+                                    randn(1001, 999, dtype=dt).T, False))
+        # Leading dimensions that are multiples of 8 around ragged extents:
+        # the cp.async path with chunks that are partly outside the matrix.
+        mm.append(check_matmul_case(f"partial_chunks_{dt}", randn(1000, 1000, dtype=dt)[:, :999],
+                                    randn(999, 1008, dtype=dt)[:, :1001], False))
+        # A pointer off its 16-byte boundary: the element-wise loader.
+        mm.append(check_matmul_case(f"unaligned_{dt}", randn(256, 257, dtype=dt)[:, 1:],
+                                    randn(256, 384, dtype=dt), False))
+        for m, k, n in ((0, 5, 7), (5, 0, 7), (5, 3, 0)):
+            mm.append(check_matmul_case(f"empty_{m}x{k}x{n}_{dt}", randn(m, k, dtype=dt),
+                                        randn(k, n, dtype=dt), False))
+    mm.append(check_matmul_case("mixed_bf16_f32", randn(300, 200), randn(200, 100, dtype=f32),
+                                False))
+    rms[0]["max_abs_err"] = max(r["max_abs_err"] for r in rms)
+    mm[0]["max_abs_err"] = max(r["max_abs_err"] for r in mm)
+    return {"rmsnorm": rms[0], "tiled_matmul": mm[0]}
+
+
+def ffn_half_ops(x, ln2, w1, w2):
+    """The FFN half of a Block built from the standalone entry points
+    alone: x + tiled_matmul(gelu(tiled_matmul(rmsnorm(x, ln2), w1)), w2)."""
+    import torch.nn.functional as F
+
+    from k8s_dra_driver_tpu_torch.ops.kernels import rmsnorm, tiled_matmul
+
+    h = tiled_matmul(rmsnorm(x, ln2), w1)
+    return x + tiled_matmul(F.gelu(h, approximate="tanh"), w2)
+
+
+def phase_standalone_ops(device):
+    """The whole-op path at bench width: the FFN half of a Block through
+    ``ffn_half_ops`` on seed-0 bench weights cast to bf16 and a bf16
+    [4096, 2048] row block, forward and torch.autograd.grad to x, ln2, w1
+    and w2, held to the model's own ``ffn_half`` (cuBLAS). Returns the
+    launch counts of one forward and backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from k8s_dra_driver_tpu_torch.models.flagship import (
+        SliceProofConfig,
+        ffn_half,
+        init_params,
+    )
+    from k8s_dra_driver_tpu_torch.ops import LAUNCHES
+
+    model = init_params(SliceProofConfig.bench(), seed=0, device=device)
+    layer = model.layers[0]
+    leaves = [t.detach().to(torch.bfloat16).requires_grad_()
+              for t in (layer.ln2, layer.w1, layer.w2)]
+    del model, layer
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=device).manual_seed(7)
+    x = torch.randn(OPS_TOKENS, OPS_D, generator=gen, device=device).to(
+        torch.bfloat16).requires_grad_()
+    dy = torch.randn(OPS_TOKENS, OPS_D, generator=gen, device=device).to(torch.bfloat16)
+    inputs = [x, *leaves]
+    names = ["x", "ln2", "w1", "w2"]
+    grads = torch.autograd.grad(ffn_half_ops(*inputs), inputs, dy)  # warm-up
+    torch.cuda.synchronize()
+
+    # The standalone-ops path: counts cleared just before, read just after.
+    LAUNCHES.clear()
+    y = ffn_half_ops(*inputs)
+    fwd_launches = dict(LAUNCHES)
+    grads = torch.autograd.grad(y, inputs, dy)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    print(f"standalone ops: launches forward {fwd_launches}, forward and backward "
+          f"{launches}")
+    if fwd_launches != {"rmsnorm": 1, "tiled_matmul": 2}:
+        fail(f"the FFN half's forward launched {fwd_launches}, want rmsnorm once "
+             f"and tiled_matmul twice")
+    if launches != {"rmsnorm": 1, "tiled_matmul": 6}:
+        fail(f"the FFN half's forward and backward launched {launches}, want "
+             f"rmsnorm once and tiled_matmul 2 + 4 times")
+
+    y_ref = ffn_half(*inputs)
+    grads_ref = torch.autograd.grad(y_ref, inputs, dy)
+    y, y_ref = y.detach().float(), y_ref.detach().float()
+    errs = {"y": float((y - y_ref).abs().max() / y_ref.abs().max())}
+    for name, got, want in zip(names, grads, grads_ref):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"grad {name}: {got.dtype} {tuple(got.shape)}, the model's "
+                 f"{want.dtype} {tuple(want.shape)}")
+        errs[f"d{name}"] = leaf_errors([name], [got.float()], [want.float()])[0]
+    print(f"standalone ops: vs the model's ffn_half (cuBLAS), max|err| / max|value| "
+          f"{ {k: float(f'{v:.3e}') for k, v in errs.items()} } (tolerance {GRAD_LEAF_ATOL})")
+    if not bool(torch.isfinite(y).all()) or max(errs.values()) > GRAD_LEAF_ATOL:
+        fail("the FFN half through the standalone ops disagrees with the model's")
+    del y_ref, grads_ref, grads
+
+    d = OPS_D
+    ln2, w1, w2 = leaves
+
+    def cublas_chain(x, ln2, w1, w2):
+        h = F.rms_norm(x, (d,), ln2, eps=1e-6) @ w1
+        return x + F.gelu(h, approximate="tanh") @ w2
+
+    times = {}
+    for label, fn in (("ops", ffn_half_ops), ("cublas", cublas_chain)):
+        with torch.no_grad():
+            times[f"{label}_forward_ms"] = time_ms(lambda: fn(*inputs), 10)
+        out = fn(*inputs)
+        times[f"{label}_backward_ms"] = time_ms(
+            lambda: torch.autograd.grad(out, inputs, dy, retain_graph=True), 10)
+        del out
+    print(f"standalone ops: FFN half at [{OPS_TOKENS}, {OPS_D}] x d_ff {OPS_FF}, "
+          f"{json.dumps(times)}")
+    return launches
+
+
 def profile_call(fn, label, out_dir):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -948,8 +1221,9 @@ def main() -> int:
     rows = phase_kernels(device)
     bwd = phase_bwd_kernels(device)
     flash = phase_flash_kernels(device)
+    ops = phase_ops_kernels(device)
 
-    # 3-8. the main paths
+    # 3-9. the main paths
     launches, model, tokens = phase_scoring(device, args.profile)
     obj_launches = phase_objective(model, tokens)
     phase_flash_scoring(device, model, args.profile)
@@ -958,8 +1232,9 @@ def main() -> int:
     phase_training(device, args.profile)
     flash_launches = phase_flash_training(device, args.profile)
     phase_long_sequence(device)
+    ops_launches = phase_standalone_ops(device)
 
-    # 9. device
+    # 10. device
     smi = subprocess.run(
         ["nvidia-smi", "-i", str(torch.cuda.current_device()),
          "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1014,6 +1289,23 @@ def main() -> int:
             "source": f"k8s_dra_driver_tpu_torch/ops/csrc/{name}.cu",
             "replaces": f"{lib}:{line}",
             "launches": flash_launches.get(name, 0),
+            "max_abs_err": row["max_abs_err"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library_call": call,
+        })
+    for name, src_line, call in (("rmsnorm", 40, "F.rms_norm"),
+                                 ("tiled_matmul", 121, "torch.matmul")):
+        row = ops[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"k8s_dra_driver_tpu_torch/ops/csrc/{name}.cu",
+            "replaces": f"k8s_dra_driver_tpu/ops/kernels.py:{src_line}",
+            "launches": ops_launches.get(name, 0),
             "max_abs_err": row["max_abs_err"],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],

@@ -112,10 +112,17 @@ class Block(nn.Module):
             x = x + torch.einsum("bshk,hkd->bsd", attn, self.wo.to(torch.bfloat16))
         else:
             x = causal_einsum_attention(self.wqkv, self.wo, x, h, self.head_dim)
-        h = rmsnorm(x, self.ln2)
-        # jax.nn.gelu defaults to the tanh approximation.
-        ff = F.gelu(h @ self.w1.to(torch.bfloat16), approximate="tanh")
-        return x + ff @ self.w2.to(torch.bfloat16)
+        return ffn_half(x, self.ln2, self.w1, self.w2)
+
+
+def ffn_half(x: torch.Tensor, ln2: torch.Tensor, w1: torch.Tensor,
+             w2: torch.Tensor) -> torch.Tensor:
+    """The FFN half of a Block: x + gelu(rmsnorm(x, ln2) @ w1) @ w2, the
+    weights cast to bf16 at each matmul."""
+    h = rmsnorm(x, ln2)
+    # jax.nn.gelu defaults to the tanh approximation.
+    ff = F.gelu(h @ w1.to(torch.bfloat16), approximate="tanh")
+    return x + ff @ w2.to(torch.bfloat16)
 
 
 class SliceProof(nn.Module):

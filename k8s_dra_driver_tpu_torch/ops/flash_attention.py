@@ -26,7 +26,7 @@ from typing import Tuple
 
 import torch
 
-from k8s_dra_driver_tpu_torch.ops import _build
+from k8s_dra_driver_tpu_torch.ops import _build, on_cpu
 
 KERNEL_FWD = "flash_fwd"
 KERNEL_DQ = "flash_dq"
@@ -51,17 +51,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> N
                          f"the reference kernel's block")
 
 
-def _on_cpu(*ts: torch.Tensor) -> bool:
-    """True for all-CPU inputs (plain path), False for inputs on one CUDA
-    device (kernel path); raises otherwise."""
-    if all(t.device.type == "cpu" for t in ts):
-        return True
-    if ts[0].device.type != "cuda" or any(t.device != ts[0].device for t in ts):
-        raise ValueError(f"flash_attention: inputs must share one CUDA device (or "
-                         f"all lie on the CPU); got {[str(t.device) for t in ts]}")
-    return False
-
-
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, sm_scale: float = 1.0) -> torch.Tensor:
     """Causal attention of q, k, v [b, h, s, head_dim]; returns [b, h, s,
@@ -78,7 +67,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale: float):
-        if _on_cpu(q, k, v):
+        if on_cpu("flash_attention", q, k, v):
             o, l, m = flash_fwd_plain(q, k, v, sm_scale)
         else:
             q, k, v = _kernel_inputs(q, k, v)
@@ -93,7 +82,7 @@ class FlashAttention(torch.autograd.Function):
         need_q, need_k, need_v = ctx.needs_input_grad[:3]
         di = (o.float() * do.float()).sum(-1)
         dq = dk = dv = None
-        if _on_cpu(q, do):
+        if on_cpu("flash_attention", q, do):
             if need_k or need_v:
                 dk, dv = flash_dkv_plain(q, k, v, do, l, m, di, ctx.sm_scale)
             if need_q:

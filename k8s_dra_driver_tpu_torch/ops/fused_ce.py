@@ -24,7 +24,7 @@ from typing import Iterator, Tuple
 import torch
 import torch.nn.functional as F
 
-from k8s_dra_driver_tpu_torch.ops import _build
+from k8s_dra_driver_tpu_torch.ops import _build, on_cpu
 
 KERNEL = "fused_ce_fwd"
 KERNEL_DX = "fused_ce_dx"
@@ -44,18 +44,6 @@ def _check(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
     if w.shape[0] != d or tuple(labels.shape) != (t_dim,):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)}, labels {tuple(labels.shape)}")
-
-
-def _check_device(x: torch.Tensor, *others: torch.Tensor) -> bool:
-    """True for all-CPU inputs (plain path), False for inputs on one CUDA
-    device (kernel path); raises otherwise."""
-    if all(t.device.type == "cpu" for t in (x, *others)):
-        return True
-    if x.device.type != "cuda" or any(t.device != x.device for t in others):
-        raise ValueError(f"fused_ce_losses: x, w and labels must share one "
-                         f"CUDA device (or all lie on the CPU); got "
-                         f"{[str(t.device) for t in (x, *others)]}")
-    return False
 
 
 def fused_ce_losses(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
@@ -79,7 +67,7 @@ class FusedCE(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, labels, block_t: int, block_v: int):
-        if _check_device(x, w, labels):
+        if on_cpu("fused_ce_losses", x, w, labels):
             lse, picked = _plain_parts(x, w, labels, block_v)
         else:
             lse, picked = _launch(x, w, labels)
@@ -92,7 +80,7 @@ class FusedCE(torch.autograd.Function):
         x, w, labels, lse = ctx.saved_tensors
         need_dx, need_dw = ctx.needs_input_grad[:2]
         dx = dw = None
-        if _check_device(x, w, labels, lse):
+        if on_cpu("fused_ce_losses", x, w, labels, lse):
             if need_dx:
                 dx = fused_ce_dx_plain(x, w, labels, lse, g, ctx.block_v)
             if need_dw:
