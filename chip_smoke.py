@@ -24,7 +24,12 @@ Phases, each fatal on failure:
     [2, 4, 256, 64], each against its plain version on the same saved row
     statistics and against reference_attention (its autograd for the
     grads); the library call is F.scaled_dot_product_attention; and,
-    untimed, at head_dim 16, 48, 144, 272, 528 and 1008;
+    untimed, at head_dim 16, 48, 144, 272, 528 and 1008 and at seq 384 with
+    head_dim 128, 256, 272 and 1024. For flash_fwd and flash_dkv: the ptxas
+    registers and spills of every instantiation (a spill is fatal), the
+    cluster size and TFLOP/s at each timed shape, and the share of their
+    time that the cluster exchange costs at equal work, head_dim 128 to
+    1024;
  3. scoring: SliceProof at the full width of SliceProofConfig.bench() with
     seeded random weights scores a few batches of 4x1024 tokens through
     evaluate_nll under torch.no_grad(): exactly one fused_ce_fwd a batch
@@ -125,15 +130,27 @@ REMAT_RTOL = 1e-3
 # long-sequence table at seq 8192; bench.py check_flash_numerics' shape.
 FLASH_SHAPES = {"bench": (4, 2, 1024, 1024), "long": (1, 16, 8192, 128),
                 "numerics": (2, 4, 256, 64)}
-# Untimed head_dims, one for each accumulator width the kernels are built
-# for (1, 2, 4 and 8 fragments a warp), none a multiple of 128.
+# Untimed head_dims at [1, 2, 256, d], none a multiple of 128: every slice
+# width of the forward and dkv kernels (64, 128, 256), ragged last slices
+# (144, 272, 528, 1008) and clusters of 2 to 8 blocks.
 FLASH_HEAD_DIMS = (16, 48, 144, 272, 528, 1008)
+# Untimed at seq 384 (6 tiles of 64, not a power of two): one and two
+# 128-column slices, a ragged cluster of 3 (dkv) and of 2 (forward), and
+# the bench head_dim's clusters of 4 (forward) and 8 (dkv).
+FLASH_SEQ384_HEAD_DIMS = (128, 256, 272, 1024)
+# Equal work to the bench attention (b·h·d = 8192, seq 1024) at these
+# head_dims: at 128 neither kernel splits head_dim over a cluster, above it
+# the clusters grow (forward 1, 2, 4; dkv 2, 4, 8), so the time over the
+# head_dim-128 time is what the cluster exchange costs.
+FLASH_SWEEP_HEAD_DIMS = (128, 256, 512, 1024)
 # Flash kernels vs their plain versions and the f32 reference, as max|err|
-# / max|value| per output tensor: the kernels walk key tiles of 16 where
-# the plain versions walk blocks of 128, so p is rounded to bf16 against
-# another running max in the forward, and both round p and ds to bf16
-# before the second products and write bf16 (2**-9 relative); the
-# reference keeps f32 throughout. The repo's bf16 tolerance.
+# / max|value| per output tensor: the kernels walk key tiles of 64 (dq: 16)
+# where the plain versions walk blocks of 128, so p is rounded to bf16
+# against another running max in the forward, and the score sums over
+# head_dim are taken in another order (split over a cluster's blocks above
+# head_dim 256 forward, 128 dkv); all round p and ds to bf16 before the
+# second products and write bf16 (2**-9 relative); the reference keeps f32
+# throughout. The repo's bf16 tolerance.
 FLASH_REL_TOL = 2e-2
 # The long-sequence scoring point: batch 1 at seq 8192, calls timed.
 LONG_SEQ, LONG_CALLS = 8192, 2
@@ -368,20 +385,28 @@ def phase_kernels(device):
     return rows
 
 
-def flash_bound_ms(shape, kernel: str):
-    """Least time for one flash kernel at ``shape`` [b, h, s, d]: its
+def flash_flops(shape, kernel: str) -> float:
+    """The operations of one flash kernel at ``shape`` [b, h, s, d]: its
     [s x s x d] products over the causal half (the pairs key <= query the
-    walk needs), against its bytes (inputs read once, outputs written once)."""
+    walk needs)."""
+    b, h, s, d = shape
+    product = 2.0 * b * h * (s * (s + 1) / 2) * d
+    return {"flash_fwd": 2, "flash_dq": 3, "flash_dkv": 4}[kernel] * product
+
+
+def flash_bound_ms(shape, kernel: str):
+    """Least time for one flash kernel at ``shape``: its operations against
+    its bytes (inputs read once, outputs written once)."""
     b, h, s, d = shape
     n = b * h * s * d
-    product = 2.0 * b * h * (s * (s + 1) / 2) * d
     rows = 4.0 * b * h * s  # one f32 per row: l, m or di
-    flops, nbytes = {
-        "flash_fwd": (2 * product, 2.0 * 4 * n + 2 * rows),    # q k v -> o, l, m
-        "flash_dq": (3 * product, 2.0 * 5 * n + 3 * rows),     # q k v do l m di -> dq
-        "flash_dkv": (4 * product, 2.0 * 6 * n + 3 * rows),    # ... -> dk, dv
+    nbytes = {
+        "flash_fwd": 2.0 * 4 * n + 2 * rows,    # q k v -> o, l, m
+        "flash_dq": 2.0 * 5 * n + 3 * rows,     # q k v do l m di -> dq
+        "flash_dkv": 2.0 * 6 * n + 3 * rows,    # ... -> dk, dv
     }[kernel]
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    t_ops = flash_flops(shape, kernel) / PEAK_BF16_FLOPS
+    t_bytes = nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -488,24 +513,91 @@ def check_flash_case(name, shape, gen, timed: bool = True):
         out["flash_fwd"]["library_ms"] = fwd_lib
         out["flash_dkv"]["library_ms"] = out["flash_dq"]["library_ms"] = bwd_lib
         for kernel in ("flash_fwd", "flash_dq", "flash_dkv"):
-            out[kernel]["bound_ms"], out[kernel]["bound_by"] = flash_bound_ms(shape, kernel)
+            t = out[kernel]
+            t["bound_ms"], t["bound_by"] = flash_bound_ms(shape, kernel)
+            tflops = flash_flops(shape, kernel) / t["ms"] / 1e9
+            print(f"flash {kernel} {name} {list(shape)}: cluster "
+                  f"{flash_cluster(kernel, shape[-1])}, {t['ms']:.4f} ms, "
+                  f"{tflops:.1f} TFLOP/s")
         row["times"] = out
     print(f"kernel flash {json.dumps(row)}")
     return out
 
 
+def flash_cluster(kernel: str, head_dim: int) -> int:
+    """Blocks a thread-block cluster of ``kernel`` has at ``head_dim``, as
+    the kernel's C entry point reports it (flash_dq uses none: 1)."""
+    from k8s_dra_driver_tpu_torch.ops import _build
+
+    if kernel == "flash_dq":
+        return 1
+    return getattr(_build.load(kernel), f"{kernel}_cluster")(head_dim)
+
+
+def ptxas_report(kernel: str):
+    """(entry function, registers line, spills line) for each instantiation
+    of ``kernel`` that ptxas compiled in this run."""
+    from k8s_dra_driver_tpu_torch.ops import _build
+
+    report, entry, spills = [], "", ""
+    for line in _build.BUILD_LOGS.get(kernel, "").splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "spill" in line:
+            spills = line.strip()
+        elif "registers" in line:
+            report.append((entry, line.strip().split("info    : ")[-1], spills))
+    return report
+
+
 def phase_flash_kernels(device):
     """Each flash kernel held to its plain version and to the reference at
     the bench attention shape, the long-sequence shape and the reference's
-    numerics-check shape, all three timed, and at FLASH_HEAD_DIMS. Returns
-    the bench shape's rows, with max_abs_err the worst over every case."""
+    numerics-check shape, all three timed, and at FLASH_HEAD_DIMS and
+    FLASH_SEQ384_HEAD_DIMS; the ptxas report of the forward and dkv kernels
+    (fatal on a spill) and the cluster exchange's share of their time at
+    equal work over FLASH_SWEEP_HEAD_DIMS. Returns the bench shape's rows, with max_abs_err the worst over
+    every case."""
     import torch
 
+    from k8s_dra_driver_tpu_torch.ops import flash_attention as fa
+
+    for kernel in ("flash_fwd", "flash_dkv"):
+        report = ptxas_report(kernel)
+        if not report:
+            print(f"flash {kernel} ptxas: library reused, not compiled in this run")
+        for entry, regs, spills in report:
+            print(f"flash {kernel} ptxas: {entry}: {regs}; {spills}")
+        if any(not spills.startswith("0 bytes stack frame, 0 bytes spill stores")
+               for _, _, spills in report):
+            fail(f"{kernel}: ptxas reports spills")
     gen = torch.Generator(device=device).manual_seed(4)
     rows = {name: check_flash_case(name, shape, gen)
             for name, shape in FLASH_SHAPES.items()}
     for d in FLASH_HEAD_DIMS:
         rows[d] = check_flash_case(f"head_dim_{d}", (1, 2, 256, d), gen, timed=False)
+    for d in FLASH_SEQ384_HEAD_DIMS:
+        rows[f"seq384_{d}"] = check_flash_case(f"seq384_head_dim_{d}", (1, 2, 384, d),
+                                               gen, timed=False)
+    # What the exchange across a cluster costs: equal work at growing
+    # head_dims, against head_dim 128.
+    sweep = {}
+    for d in FLASH_SWEEP_HEAD_DIMS:
+        shape = (4, 2048 // d, 1024, d)
+        q, k, v, do = (torch.randn(shape, generator=gen, device=device)
+                       .to(torch.bfloat16) for _ in range(4))
+        scale = float(1.0 / math.sqrt(d))
+        o, l, m = fa._launch_fwd(q, k, v, scale)
+        di = (o.float() * do.float()).sum(-1)
+        sweep[d] = {"flash_fwd": time_ms(lambda: fa._launch_fwd(q, k, v, scale), 10),
+                    "flash_dkv": time_ms(lambda: fa._launch_bwd(
+                        fa.KERNEL_DKV, q, k, v, do, l, m, di, scale), 10)}
+        del q, k, v, do, o, l, m, di
+    base = sweep[FLASH_SWEEP_HEAD_DIMS[0]]
+    for kernel in ("flash_fwd", "flash_dkv"):
+        print(f"flash {kernel} exchange at equal work [4, 2048 / d, 1024, d]: " + ", ".join(
+            f"d {d} cluster {flash_cluster(kernel, d)} {t[kernel]:.4f} ms share "
+            f"{1 - base[kernel] / t[kernel]:.3f}" for d, t in sweep.items()))
     bench = rows["bench"]
     for kernel, row in bench.items():
         row["max_abs_err"] = max(r[kernel]["max_abs_err"] for r in rows.values())

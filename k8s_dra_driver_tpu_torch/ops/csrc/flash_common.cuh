@@ -1,9 +1,10 @@
-// Pieces shared by the causal flash-attention kernels (flash_fwd.cu,
-// flash_dq.cu, flash_dkv.cu): the tile size, the row-tile loader, the
-// split score product and the accumulating product.
+// Pieces of the mma.sync flash-attention kernel flash_dq.cu: the tile
+// size, the row-tile loader, the split score product and the accumulating
+// product. (flash_fwd.cu and flash_dkv.cu are warpgroup kernels built on
+// hopper.cuh instead.)
 //
 // q, k, v, do and the outputs are [batch * heads, S, D] bf16, row-major,
-// S a multiple of 16 and D (head_dim) a multiple of 16 up to 1024. Every
+// S a multiple of 16 and D (head_dim) a multiple of 16 up to 1024. The
 // kernel walks 16-row tiles with 256 threads (8 warps), and every warp
 // owns the same slice of head_dim: d-fragment f (16 columns) belongs to
 // warp f % 8, so a warp holds FR <= 1024 / 16 / 8 = 8 f32 accumulator
@@ -106,20 +107,6 @@ __device__ __forceinline__ float sum_slots(const float* red, int tid) {
 #pragma unroll
   for (int w = 0; w < WARPS; ++w) s += red[w * FRAG + tid];
   return s;
-}
-
-// Max and sum over the 16 threads of one score row (a half warp).
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 // acc[16, this warp's d-fragments] += t[16, 16] @ b[16, D]: `t` a bf16

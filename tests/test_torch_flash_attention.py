@@ -32,7 +32,10 @@ REF_REL_TOL = 2e-2
 # the same function, summed in another order.
 F32_TOL = dict(rtol=1e-4, atol=1e-5)
 
-SHAPES = [(1, 2, 256, 128), (1, 2, 384, 64)]
+# (1, 1, 256, 384): a head_dim that the CUDA forward's cluster split cuts
+# raggedly (256 + 128) and the dkv kernel over a cluster of 3; the library
+# kernel takes head_dims above 128 only in multiples of 128.
+SHAPES = [(1, 2, 256, 128), (1, 2, 384, 64), (1, 1, 256, 384)]
 
 
 def _inputs(shape, seed=0):
@@ -83,6 +86,25 @@ def test_matches_reference_attention(case, i, name):
     ref = fa.reference_attention(q, k, v, sm_scale=sm_scale)
     want = [ref.detach(), *torch.autograd.grad(ref, (q, k, v), do)]
     assert _rel(got[i], want[i].numpy()) < REF_REL_TOL, name
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 256, 272)], ids=lambda s: "x".join(map(str, s)))
+def test_ragged_head_dim_matches_reference_attention(shape):
+    """head_dim 272, which the library kernel refuses and the CUDA kernels
+    cut raggedly (256 + 16 forward, 128 + 128 + 16 dkv): the plain versions
+    that the kernels are held to on the card match the f32 reference."""
+    arrays = _inputs(shape, seed=5)
+    sm_scale = float(1.0 / np.sqrt(shape[-1]))
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16).requires_grad_() for a in arrays[:3])
+    do = torch.from_numpy(arrays[3]).to(torch.bfloat16)
+    out = fa.flash_attention(q, k, v, sm_scale=sm_scale)
+    got = [out.detach(), *torch.autograd.grad(out, (q, k, v), do)]
+    qr, kr, vr = (t.detach().float().requires_grad_() for t in (q, k, v))
+    ref = fa.reference_attention(qr, kr, vr, sm_scale=sm_scale)
+    want = [ref.detach(), *torch.autograd.grad(ref, (qr, kr, vr), do.float())]
+    for name, g, w in zip(["o", "dq", "dk", "dv"], got, want):
+        assert g.dtype == torch.bfloat16
+        assert _rel(g.float().numpy(), w.numpy()) < REF_REL_TOL, name
 
 
 def test_f32_plain_versions_match_reference_autograd():
