@@ -25,9 +25,9 @@ Phases, each fatal on failure:
     statistics and against reference_attention (its autograd for the
     grads); the library call is F.scaled_dot_product_attention; and,
     untimed, at head_dim 16, 48, 144, 272, 528 and 1008 and at seq 384 with
-    head_dim 128, 256, 272 and 1024. For flash_fwd and flash_dkv: the ptxas
+    head_dim 128, 256, 272 and 1024. For each flash kernel: the ptxas
     registers and spills of every instantiation (a spill is fatal), the
-    cluster size and TFLOP/s at each timed shape, and the share of their
+    cluster size and TFLOP/s at each timed shape, and the share of its
     time that the cluster exchange costs at equal work, head_dim 128 to
     1024;
  3. scoring: SliceProof at the full width of SliceProofConfig.bench() with
@@ -60,8 +60,9 @@ Phases, each fatal on failure:
     bf16 products (forward, and the two VJP products with a transposed
     operand) and at [4096, 2048] @ [2048, 2048] in f32, each timed beside
     its plain version, one library call (F.rms_norm, torch.matmul) and the
-    bound; untimed at small, odd, ragged, unaligned, mixed-dtype and empty
-    shapes. Then the whole-op path: the FFN half of a Block built from
+    bound, with tiled_matmul's TFLOP/s and the ptxas report of its
+    instantiations (a spill is fatal); untimed at small, odd, ragged,
+    unaligned, mixed-dtype and empty shapes. Then the whole-op path: the FFN half of a Block built from
     rmsnorm and tiled_matmul alone, on seed-0 bench weights cast to bf16
     and a [4096, 2048] bf16 row block, forward and autograd to x, ln2, w1
     and w2: exactly one rmsnorm and two tiled_matmul launches forward and
@@ -130,26 +131,27 @@ REMAT_RTOL = 1e-3
 # long-sequence table at seq 8192; bench.py check_flash_numerics' shape.
 FLASH_SHAPES = {"bench": (4, 2, 1024, 1024), "long": (1, 16, 8192, 128),
                 "numerics": (2, 4, 256, 64)}
+FLASH_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 # Untimed head_dims at [1, 2, 256, d], none a multiple of 128: every slice
 # width of the forward and dkv kernels (64, 128, 256), ragged last slices
 # (144, 272, 528, 1008) and clusters of 2 to 8 blocks.
 FLASH_HEAD_DIMS = (16, 48, 144, 272, 528, 1008)
 # Untimed at seq 384 (6 tiles of 64, not a power of two): one and two
-# 128-column slices, a ragged cluster of 3 (dkv) and of 2 (forward), and
-# the bench head_dim's clusters of 4 (forward) and 8 (dkv).
+# 128-column slices, a ragged cluster of 3 (dkv) and of 2 (forward, dq),
+# and the bench head_dim's clusters of 4 (forward, dq) and 8 (dkv).
 FLASH_SEQ384_HEAD_DIMS = (128, 256, 272, 1024)
 # Equal work to the bench attention (b·h·d = 8192, seq 1024) at these
-# head_dims: at 128 neither kernel splits head_dim over a cluster, above it
-# the clusters grow (forward 1, 2, 4; dkv 2, 4, 8), so the time over the
-# head_dim-128 time is what the cluster exchange costs.
+# head_dims: at 128 no kernel splits head_dim over a cluster, above it the
+# clusters grow (forward and dq 1, 2, 4; dkv 2, 4, 8), so the time over
+# the head_dim-128 time is what the cluster exchange costs.
 FLASH_SWEEP_HEAD_DIMS = (128, 256, 512, 1024)
 # Flash kernels vs their plain versions and the f32 reference, as max|err|
-# / max|value| per output tensor: the kernels walk key tiles of 64 (dq: 16)
-# where the plain versions walk blocks of 128, so p is rounded to bf16
-# against another running max in the forward, and the score sums over
-# head_dim are taken in another order (split over a cluster's blocks above
-# head_dim 256 forward, 128 dkv); all round p and ds to bf16 before the
-# second products and write bf16 (2**-9 relative); the reference keeps f32
+# / max|value| per output tensor: the kernels walk key tiles of 64 where
+# the plain versions walk blocks of 128, so p is rounded to bf16 against
+# another running max in the forward, and the score sums over head_dim are
+# taken in another order (split over a cluster's blocks above head_dim 256
+# forward and dq, 128 dkv); all round p and ds to bf16 before the second
+# products and write bf16 (2**-9 relative); the reference keeps f32
 # throughout. The repo's bf16 tolerance.
 FLASH_REL_TOL = 2e-2
 # The long-sequence scoring point: batch 1 at seq 8192, calls timed.
@@ -526,11 +528,9 @@ def check_flash_case(name, shape, gen, timed: bool = True):
 
 def flash_cluster(kernel: str, head_dim: int) -> int:
     """Blocks a thread-block cluster of ``kernel`` has at ``head_dim``, as
-    the kernel's C entry point reports it (flash_dq uses none: 1)."""
+    the kernel's C entry point reports it."""
     from k8s_dra_driver_tpu_torch.ops import _build
 
-    if kernel == "flash_dq":
-        return 1
     return getattr(_build.load(kernel), f"{kernel}_cluster")(head_dim)
 
 
@@ -550,27 +550,33 @@ def ptxas_report(kernel: str):
     return report
 
 
+def print_ptxas(kernel: str, label: str) -> None:
+    """Print the ptxas report of ``kernel``'s instantiations; fail on a
+    spill."""
+    report = ptxas_report(kernel)
+    if not report:
+        print(f"{label} {kernel} ptxas: library reused, not compiled in this run")
+    for entry, regs, spills in report:
+        print(f"{label} {kernel} ptxas: {entry}: {regs}; {spills}")
+    if any(not spills.startswith("0 bytes stack frame, 0 bytes spill stores")
+           for _, _, spills in report):
+        fail(f"{kernel}: ptxas reports spills")
+
+
 def phase_flash_kernels(device):
     """Each flash kernel held to its plain version and to the reference at
     the bench attention shape, the long-sequence shape and the reference's
     numerics-check shape, all three timed, and at FLASH_HEAD_DIMS and
-    FLASH_SEQ384_HEAD_DIMS; the ptxas report of the forward and dkv kernels
-    (fatal on a spill) and the cluster exchange's share of their time at
-    equal work over FLASH_SWEEP_HEAD_DIMS. Returns the bench shape's rows, with max_abs_err the worst over
-    every case."""
+    FLASH_SEQ384_HEAD_DIMS; the ptxas report of each (fatal on a spill) and
+    the cluster exchange's share of its time at equal work over
+    FLASH_SWEEP_HEAD_DIMS. Returns the bench shape's rows, with max_abs_err
+    the worst over every case."""
     import torch
 
     from k8s_dra_driver_tpu_torch.ops import flash_attention as fa
 
-    for kernel in ("flash_fwd", "flash_dkv"):
-        report = ptxas_report(kernel)
-        if not report:
-            print(f"flash {kernel} ptxas: library reused, not compiled in this run")
-        for entry, regs, spills in report:
-            print(f"flash {kernel} ptxas: {entry}: {regs}; {spills}")
-        if any(not spills.startswith("0 bytes stack frame, 0 bytes spill stores")
-               for _, _, spills in report):
-            fail(f"{kernel}: ptxas reports spills")
+    for kernel in FLASH_KERNELS:
+        print_ptxas(kernel, "flash")
     gen = torch.Generator(device=device).manual_seed(4)
     rows = {name: check_flash_case(name, shape, gen)
             for name, shape in FLASH_SHAPES.items()}
@@ -590,11 +596,13 @@ def phase_flash_kernels(device):
         o, l, m = fa._launch_fwd(q, k, v, scale)
         di = (o.float() * do.float()).sum(-1)
         sweep[d] = {"flash_fwd": time_ms(lambda: fa._launch_fwd(q, k, v, scale), 10),
+                    "flash_dq": time_ms(lambda: fa._launch_bwd(
+                        fa.KERNEL_DQ, q, k, v, do, l, m, di, scale), 10),
                     "flash_dkv": time_ms(lambda: fa._launch_bwd(
                         fa.KERNEL_DKV, q, k, v, do, l, m, di, scale), 10)}
         del q, k, v, do, o, l, m, di
     base = sweep[FLASH_SWEEP_HEAD_DIMS[0]]
-    for kernel in ("flash_fwd", "flash_dkv"):
+    for kernel in FLASH_KERNELS:
         print(f"flash {kernel} exchange at equal work [4, 2048 / d, 1024, d]: " + ", ".join(
             f"d {d} cluster {flash_cluster(kernel, d)} {t[kernel]:.4f} ms share "
             f"{1 - base[kernel] / t[kernel]:.3f}" for d, t in sweep.items()))
@@ -1092,6 +1100,8 @@ def check_matmul_case(name, a, b, timed: bool):
                                   queued=True)
         row["library_ms"] = time_ms(lambda: torch.matmul(a, b), 10, queued=True)
         row["bound_ms"], row["bound_by"] = matmul_bound_ms(m, n, k, ct)
+        row["tflops"] = 2.0 * m * n * k / row["ms"] / 1e9
+        row["library_tflops"] = 2.0 * m * n * k / row["library_ms"] / 1e9
     print(f"kernel tiled_matmul {json.dumps(row)}")
     return row
 
@@ -1104,6 +1114,7 @@ def phase_ops_kernels(device):
     with max_abs_err the worst over every case."""
     import torch
 
+    print_ptxas("tiled_matmul", "ops")
     gen = torch.Generator(device=device).manual_seed(6)
     bf, f32 = torch.bfloat16, torch.float32
 
@@ -1141,10 +1152,16 @@ def phase_ops_kernels(device):
         mm.append(check_matmul_case(f"1000x999x1001_transposed_{dt}", randn(999, 1000, dtype=dt).T,
                                     randn(1001, 999, dtype=dt).T, False))
         # Leading dimensions that are multiples of 8 around ragged extents:
-        # the cp.async path with chunks that are partly outside the matrix.
+        # read in place, with boxes partly outside the matrix (bf16: TMA's
+        # zero fill; f32: cp.async's). K = 7, 999 and 1001 above go to the
+        # bf16 kernel through the aligned copy.
         mm.append(check_matmul_case(f"partial_chunks_{dt}", randn(1000, 1000, dtype=dt)[:, :999],
                                     randn(999, 1008, dtype=dt)[:, :1001], False))
-        # A pointer off its 16-byte boundary: the element-wise loader.
+        # M and N not multiples of the 128 x 256 tile, N a multiple of 8:
+        # the bf16 kernel's TMA stores clip both edges of c.
+        mm.append(check_matmul_case(f"ragged_tma_store_{dt}", randn(1000, 999, dtype=dt),
+                                    randn(999, 1000, dtype=dt), False))
+        # A pointer off its 16-byte boundary: the aligned copy (bf16).
         mm.append(check_matmul_case(f"unaligned_{dt}", randn(256, 257, dtype=dt)[:, 1:],
                                     randn(256, 384, dtype=dt), False))
         for m, k, n in ((0, 5, 7), (5, 0, 7), (5, 3, 0)):

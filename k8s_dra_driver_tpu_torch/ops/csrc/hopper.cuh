@@ -1,14 +1,17 @@
 // Hopper (sm_90a) building blocks shared by the port's warpgroup kernels
-// (flash_fwd.cu, flash_dkv.cu):
+// (flash_fwd.cu, flash_dq.cu, flash_dkv.cu, tiled_matmul.cu):
 //  - wgmma: the shared-memory matrix descriptor for 128-byte-swizzled
 //    tiles, wgmma.mma_async m64nNk16 bf16 -> f32 with A from shared memory
-//    (SS) or from registers (RS), B K-major or MN-major (trans-b), and
-//    wgmma.fence / commit_group / wait_group;
-//  - mbarriers: init, arrive, arrive.expect_tx, try_wait.parity;
+//    (SS, K-major or MN-major: trans-a) or from registers (RS), B K-major
+//    or MN-major (trans-b), and wgmma.fence / commit_group / wait_group;
+//  - mbarriers: init, arrive, arrive.expect_tx, try_wait.parity; named
+//    barriers over part of a block;
 //  - TMA: cp.async.bulk.tensor 2D loads from a __grid_constant__
-//    CUtensorMap, 1D bulk copies, and the host-side encoder of a
-//    [rows, cols] bf16 map with a [box_rows, 64] 128-byte-swizzled box,
-//    fetched through the runtime's driver entry point (no -lcuda);
+//    CUtensorMap and 2D stores to one (bulk groups, the async-proxy
+//    fence), tensor-map prefetch, 1D bulk copies, and the host-side
+//    encoder of a [rows, cols] bf16 map with a [box_rows, 64]
+//    128-byte-swizzled box, with any leading dimension that is a multiple
+//    of 8, fetched through the runtime's driver entry point (no -lcuda);
 //  - clusters: barrier.cluster, %cluster_ctarank, mapa, ld.shared::cluster
 //    and st.async stores into another block's shared memory that complete
 //    on its mbarrier.
@@ -21,9 +24,10 @@
 //  - K-major operand (the reduction runs along the 64-column rows, e.g.
 //    q and k in q k^T): 8-row groups 1024 bytes apart (SBO); a k-step of 16
 //    columns is +32 bytes inside a panel, then the next panel.
-//  - MN-major operand (the reduction runs down the rows, e.g. v in p v):
-//    8-row groups 1024 bytes apart (SBO), 64-column atoms one panel apart
-//    (LBO); a k-step of 16 rows is +2048 bytes.
+//  - MN-major operand (the reduction runs down the rows, e.g. v in p v, or
+//    A = h^T read from h [K, M]): 8-row groups 1024 bytes apart (SBO),
+//    64-column atoms one panel apart (LBO); a k-step of 16 rows is +2048
+//    bytes.
 
 #pragma once
 
@@ -155,6 +159,39 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       "r"(row)
       : "memory");
 }
+// One 2D box of shared memory at `src` into `map` at (col, row); rows and
+// columns outside the matrix are not written. Joins this thread's bulk
+// group: bulk_commit, then bulk_wait_read before `src` is reused.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int col,
+                                             int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(col), "r"(row)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until this thread's committed bulk stores have read their source.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Make this thread's shared-memory writes visible to TMA (the async proxy).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Fetch a tensor map's descriptor ahead of its first copy.
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+// Named barrier `id` (1-15) over `count` threads, a multiple of 32.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
 // `bytes` (a multiple of 16, both ends 16-byte aligned) from global memory.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           uint32_t bytes, uint64_t* bar) {
@@ -176,16 +213,26 @@ __device__ __forceinline__ void st_async(void* dst, uint4 v, uint64_t* bar,
       "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(mapa(smem_u32(bar), rank))
       : "memory");
 }
+// The same for 8 bytes.
+__device__ __forceinline__ void st_async(void* dst, uint2 v, uint64_t* bar,
+                                         uint32_t rank) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32 "
+      "[%0], {%1, %2}, [%3];\n" ::"r"(mapa(smem_u32(dst), rank)),
+      "r"(v.x), "r"(v.y), "r"(mapa(smem_u32(bar), rank))
+      : "memory");
+}
 __device__ __forceinline__ uint4 as_uint4(float4 v) {
   return make_uint4(__float_as_uint(v.x), __float_as_uint(v.y),
                     __float_as_uint(v.z), __float_as_uint(v.w));
 }
 
-// Host: a map of the bf16 matrix [rows, cols] (row pitch cols, a multiple
-// of 8) read in [box_rows, 64] boxes with the 128B swizzle. Columns past
-// `cols` read as zeros. Returns a CUresult (0 on success).
+// Host: a map of the bf16 matrix [rows, cols] with row pitch `ld`
+// elements (cols when 0; a multiple of 8, base 16-byte aligned) read in
+// [box_rows <= 256, 64] boxes with the 128B swizzle. Rows and columns
+// outside the matrix read as zeros. Returns a CUresult (0 on success).
 inline int make_map(CUtensorMap* map, const void* base, uint64_t rows,
-                    uint64_t cols, uint32_t box_rows) {
+                    uint64_t cols, uint32_t box_rows, uint64_t ld = 0) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                               void*, const cuuint64_t*, const cuuint64_t*,
                               const cuuint32_t*, const cuuint32_t*,
@@ -208,7 +255,7 @@ inline int make_map(CUtensorMap* map, const void* base, uint64_t rows,
     encode = reinterpret_cast<Encode>(fn);
   }
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint64_t strides[1] = {(ld ? ld : cols) * 2};
   const cuuint32_t box[2] = {64, box_rows};
   const cuuint32_t estr[2] = {1, 1};
   return static_cast<int>(encode(
@@ -250,7 +297,8 @@ cudaError_t launch_cluster(Kernel kernel, dim3 grid, int threads, size_t smem,
 // layout of N / 8 mma.sync m16n8 C fragments a warp: d[4j + {0, 1}] row
 // 16 warp + lane / 4, d[4j + {2, 3}] eight rows below, columns 8j +
 // 2 (lane % 4) + {0, 1}). d = A B + (scale_d ? d : 0). ss: A and B from
-// shared memory, both K-major. rs<TB>: A from registers (the mma.sync
+// shared memory, both K-major; at N = 256 (the matmul) ss<TA, TB> reads
+// each K-major (0) or MN-major (1). rs<TB>: A from registers (the mma.sync
 // m16n8k16 A fragment of each warp's 16 rows), B K-major (TB = 0) or
 // MN-major (TB = 1).
 template <int N>
@@ -378,6 +426,7 @@ struct Wgmma<128> {
 
 template <>
 struct Wgmma<256> {
+  template <int TA = 0, int TB = 0>
   __device__ __forceinline__ static void ss(float (&d)[128], uint64_t da,
                                             uint64_t db, int scale_d) {
     asm volatile(
@@ -396,7 +445,7 @@ struct Wgmma<256> {
         "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %1"
         "08, %109, %110, %111, %112, %113, %114, %115, %116, %117, %1"
         "18, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-        "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+        "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -429,7 +478,7 @@ struct Wgmma<256> {
           "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
           "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "l"(da), "l"(db), "r"(scale_d));
+        : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
   }
   template <int TB>
   __device__ __forceinline__ static void rs(float (&d)[128],

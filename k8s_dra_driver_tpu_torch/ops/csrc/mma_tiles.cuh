@@ -1,5 +1,6 @@
 // Tensor-core and copy primitives shared by the port's mma.sync kernels
-// (fused_ce_dx.cu, fused_ce_dw.cu, flash_dq.cu, tiled_matmul.cu):
+// (fused_ce_dx.cu, fused_ce_dw.cu) and tiled_matmul.cu's f32 path (its
+// 4-byte cp.async):
 // cp.async copies into shared memory
 // (16 bytes, 16 bytes of which only a leading part is read, or 4), ldmatrix
 // (plain and .trans) fragment loads, and mma.sync m16n8k16 (bf16 in, f32

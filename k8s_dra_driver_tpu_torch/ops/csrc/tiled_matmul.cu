@@ -13,71 +13,68 @@
 // against 0.05 ms for the 168 MB at 3.35 TB/s; [4096, 2048] @ [2048, 2048]
 // in f32 is 3.44e10 flops, 0.513 ms at the 67 TFLOP/s of non-tensor f32.
 //
-// Design. The Pallas kernel held a whole (bm, K) row panel and (K, bn)
-// column panel in VMEM. A Hopper block has 227 KB of shared memory, so here
-// each block owns a 128 x 128 tile of c and walks K through shared memory
-// in double-buffered slices, loaded with cp.async while the previous slice
-// is multiplied. Blocks are numbered in groups of 8 row tiles so that
-// neighbours share panels of a and b in L2.
-//  - bf16: slices 32 deep; 8 warps as 2 x 4, each with a 64 x 32 f32
-//    accumulator (64 registers a thread) fed by mma.sync m16n8k16 on
-//    ldmatrix fragments. An operand whose k is contiguous is staged as
-//    [128][32 + 8] and read with ldmatrix; one whose m or n is contiguous
-//    as [32][128 + 8] and read with ldmatrix.trans (the fused-CE backward
-//    kernels serve both products of one tile the same way). Row pitches of
-//    80 and 272 bytes put the eight rows of each ldmatrix phase in distinct
-//    bank groups. Where the leading dimensions are multiples of 8 and the
-//    pointers 16-byte aligned, each 16-byte chunk is one cp.async that reads
-//    only its part inside the matrix and zero-fills the rest (ragged
-//    edges); otherwise (K = 7, say) the edge-safe element-wise loader.
-//  - f32: real f32 (tensor-core TF32 keeps about three digits and would
-//    not match a full-precision product), so FFMA on the SIMT cores:
-//    slices 16 deep, each operand staged k-major as [16][128 + 4] by
-//    4-byte cp.async (any alignment, zero-filled outside the matrix), and
-//    each thread holds an 8 x 8 micro-tile of accumulators, read from
-//    shared memory as float4s at rows (and columns) 4t..4t+3 and
-//    64+4t..64+4t+3.
-// The epilogue masks the ragged edges of c. wgmma, TMA and deeper
-// pipelines come later.
+// bf16 design: wgmma fed by TMA (the tensor cores' full rate is reached
+// only through wgmma).
+//  - Tiles and warpgroups. A block owns a 128 x 256 tile of c; two consumer
+//    warpgroups each own 64 x 256 of it with wgmma m64n256k16 (128 f32
+//    accumulators a thread), and K is walked 64 deep, one 128-byte-swizzled
+//    panel of each operand a k-step.
+//  - Ring. One producer warp (lane 0) keeps 4 stages of A and B tiles in
+//    flight by TMA through full/empty mbarriers: 48 KB a stage, 192 KB in
+//    all, so one block an SM. A consumer releases a stage as soon as the
+//    wgmma group of the next k-step is issued and the previous one has
+//    retired (wait_group 1), so the tensor cores never wait on a release.
+//  - Operands read in place by descriptor, no transposed copy: A row-major
+//    [M, K] K-major; A = h^T (the VJP's dB = A^T dY, h row-major [K, M])
+//    MN-major (trans-a); B row-major [K, N] MN-major (trans-b); B = w^T
+//    (the VJP's dA = dY B^T, w row-major [N, K]) K-major. TMA needs each
+//    leading dimension a multiple of 8 and a 16-byte base: the wrapper
+//    copies any operand that fails either (no model path gives one) into
+//    an aligned buffer first.
+//  - Epilogue. Each warpgroup stages its 64 x 256 of c in bf16 in the
+//    (by then idle) ring, 128B-swizzled so the stores meet no bank
+//    conflict, and one thread writes it out with four TMA stores: whole
+//    128-byte lines, where stores straight from the accumulators write
+//    16-byte pieces of eight rows each.
+//  - Edges. Ragged M, N and K read zeros through TMA's out-of-bounds fill,
+//    and the TMA stores clip c's ragged edges; where N is not a multiple
+//    of 8 (c's row pitch then does not suit TMA) the epilogue masks
+//    stores straight from the accumulators. K = 0 writes zeros.
+//  - Tile order: one block a tile, numbered in groups of 8 row tiles so
+//    that neighbours share panels of a and b in L2. At the FFN products
+//    the grid is 2048 or 256 tiles on 132 SMs, so the last partial wave
+//    costs at most 3%. (A persistent block an SM walking every 132nd
+//    tile, its producer loading the next tile while the consumers store
+//    the last, ran slower at all four FFN products in a bring-up run.)
+// f32 design (SIMT FFMA): real f32 (tensor-core TF32 keeps about three
+// digits and would not match a full-precision product): 128 x 128 tiles
+// walking K through double-buffered shared memory in slices 16 deep, each
+// operand staged k-major as [16][128 + 4] by 4-byte cp.async (any
+// alignment, zero-filled outside the matrix), each thread an 8 x 8
+// micro-tile of accumulators, read from shared memory as float4s at rows
+// (and columns) 4t..4t+3 and 64+4t..64+4t+3. The epilogue masks the ragged
+// edges of c.
 //
 // Plain C interface (loaded with ctypes): tiled_matmul returns the CUDA
-// error code of the launch, 0 on success. It allocates nothing and
-// launches on the stream it is given.
+// error code of the launch (or a CUresult of the tensor-map encoder), 0
+// on success. It allocates nothing and launches on the stream it is given.
 
+#include "hopper.cuh"
 #include "mma_tiles.cuh"
 
 namespace {
 
+using namespace hopper;
 using namespace mma_tiles;
 
 using bf16 = __nv_bfloat16;
 
-constexpr int THREADS = 256;  // 8 warps
-constexpr int BM = 128, BN = 128;  // the c tile of a block, both dtypes
-constexpr int GROUP = 8;           // row tiles a group of blocks shares
-
-// ---- bf16 on the tensor cores ---------------------------------------------
-
-constexpr int BK = 32;
-constexpr int WM = 64, WN = 32;            // warp tile; warps 2 (m) x 4 (n)
-constexpr int MI = WM / 16, NJ = WN / 16;  // m16 tiles and n16 pairs a warp
-constexpr int PAD = 8;                     // bf16 padding of a shared row
-
-// The shared tile of one operand: [128][BK + PAD] when its k is contiguous
-// in memory (KC), else [BK][128 + PAD].
-template <bool KC>
-struct Tile {
-  static constexpr int ROWS = KC ? 128 : BK;
-  static constexpr int COLS = KC ? BK : 128;
-  static constexpr int PITCH = COLS + PAD;
-  static constexpr int ELEMS = ROWS * PITCH;
-  static constexpr int CHUNKS = ROWS * COLS / 8;  // 16-byte chunks
-  static_assert(CHUNKS % THREADS == 0, "whole chunks a thread");
-};
+constexpr int GROUP = 8;  // row tiles a group of blocks shares
 
 // Row tile mt and column tile nt of block pid, in groups of GROUP row tiles.
+template <int TM, int TN>
 __device__ __forceinline__ void tile_of(int pid, int M, int N, int& mt, int& nt) {
-  const int tm = (M + BM - 1) / BM, tn = (N + BN - 1) / BN;
+  const int tm = (M + TM - 1) / TM, tn = (N + TN - 1) / TN;
   const int per_group = GROUP * tn;
   const int first = pid / per_group * GROUP;
   const int rows = min(tm - first, GROUP);
@@ -86,156 +83,184 @@ __device__ __forceinline__ void tile_of(int pid, int M, int N, int& mt, int& nt)
   nt = in / rows;
 }
 
-// Rows [r0, r0 + ROWS) x columns [c0, c0 + COLS) of the row-major matrix
-// src [nrows, ncols] (leading dimension ld) -> dst [ROWS][PITCH], zero
-// outside the matrix. VEC: ld % 8 == 0 and src 16-byte aligned, so every
-// chunk starts aligned and goes by one cp.async of its bytes inside ncols.
-template <bool KC, bool VEC>
-__device__ __forceinline__ void load_tile(uint16_t* dst,
-                                          const uint16_t* __restrict__ src,
-                                          int ld, int nrows, int ncols, int r0,
-                                          int c0, int tid) {
-  using T = Tile<KC>;
-  constexpr int CH = T::COLS / 8;
-#pragma unroll
-  for (int i = 0; i < T::CHUNKS / THREADS; ++i) {
-    const int idx = tid + i * THREADS;
-    const int r = idx / CH, c = (idx % CH) * 8;
-    const int row = r0 + r, col = c0 + c;
-    uint16_t* d = dst + r * T::PITCH + c;
-    if (VEC) {
-      const int n = row < nrows ? max(0, min(8, ncols - col)) : 0;
-      cp_async16_n(d, n ? src + static_cast<size_t>(row) * ld + col : src, n * 2);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        d[e] = (row < nrows && col + e < ncols)
-                   ? src[static_cast<size_t>(row) * ld + col + e]
-                   : uint16_t(0);
-    }
-  }
-}
+// ---- bf16: wgmma fed by TMA -----------------------------------------------
 
-size_t bf16_smem_bytes(bool a_kc, bool b_kc) {
-  const int a = a_kc ? Tile<true>::ELEMS : Tile<false>::ELEMS;
-  const int b = b_kc ? Tile<true>::ELEMS : Tile<false>::ELEMS;
-  return 2 * static_cast<size_t>(a + b) * sizeof(uint16_t);  // two stages
-}
+constexpr int HBM = 128, HBN = 256, HBK = 64;  // c tile of a block, k-step
+constexpr int HST = 4;                         // ring stages
+constexpr int HCONSUMERS = 256;                // two warpgroups
+constexpr int HTHREADS = HCONSUMERS + 32;      // + the producer warp
+constexpr int PANEL = 64 * 128;                // one [64][64] bf16 panel
+constexpr int A_BYTES = HBM * HBK * 2;         // 16 KB
+constexpr int B_BYTES = HBN * HBK * 2;         // 32 KB
+constexpr int STAGE = A_BYTES + B_BYTES;
+constexpr size_t HSMEM = 1024 + HST * STAGE + 8 * 2 * HST;
 
-// A_KC: a is row-major [M][K] (else a row-major [K][M] read as its
-// transpose); B_KC: b is a row-major [N][K] read as its transpose (else
-// row-major [K][N]).
-template <bool A_KC, bool B_KC, bool VEC>
-__global__ void __launch_bounds__(THREADS, 2)
-matmul_bf16_kernel(const uint16_t* __restrict__ a, const uint16_t* __restrict__ b,
-                   bf16* __restrict__ c, int M, int N, int K, int lda, int ldb) {
-  using TA = Tile<A_KC>;
-  using TB = Tile<B_KC>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  uint16_t* as = reinterpret_cast<uint16_t*>(smem);  // 2 x TA
-  uint16_t* bs = as + 2 * TA::ELEMS;                  // 2 x TB
+// A_KM: a row-major [M][K] (K-major), else a = h^T, h row-major [K][M]
+// (MN-major). B_KM: b = w^T, w row-major [N][K] (K-major), else b
+// row-major [K][N] (MN-major). The tiles in shared memory: A K-major one
+// [128][64] panel (warpgroup g's rows at 8 KB g), A MN-major two [64 k][64
+// m] panels (warpgroup g's at panel g); B K-major one [256][64] panel, B
+// MN-major four [64 k][64 n] panels.
+template <bool A_KM, bool B_KM>
+__global__ void __launch_bounds__(HTHREADS, 1)
+matmul_bf16_kernel(const __grid_constant__ CUtensorMap ta,
+                   const __grid_constant__ CUtensorMap tb,
+                   const __grid_constant__ CUtensorMap tc,
+                   bf16* __restrict__ c, int M, int N, int K, int tma_store) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + HST * STAGE);
+  uint64_t* empty = full + HST;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const Lanes ln(lane);
+  const int t = threadIdx.x;
   int mt, nt;
-  tile_of(blockIdx.x, M, N, mt, nt);
-  const int m0 = mt * BM, n0 = nt * BN;
-  const int wm = (warp / 4) * WM, wn = (warp % 4) * WN;
+  tile_of<HBM, HBN>(blockIdx.x, M, N, mt, nt);
+  const int m0 = mt * HBM, n0 = nt * HBN;
+  const int nk = (K + HBK - 1) / HBK;
 
-  auto load_stage = [&](int s, int k0) {
-    if (A_KC)
-      load_tile<true, VEC>(as + s * TA::ELEMS, a, lda, M, K, m0, k0, tid);
-    else
-      load_tile<false, VEC>(as + s * TA::ELEMS, a, lda, K, M, k0, m0, tid);
-    if (B_KC)
-      load_tile<true, VEC>(bs + s * TB::ELEMS, b, ldb, N, K, n0, k0, tid);
-    else
-      load_tile<false, VEC>(bs + s * TB::ELEMS, b, ldb, K, N, k0, n0, tid);
-  };
+  if (t == 0) {
+    for (int s = 0; s < HST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], HCONSUMERS);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
 
-  // acc[i][j]: c rows m0 + wm + 16 i + lane/4 (+8), columns
-  // n0 + wn + 8 j + 2(lane%4) (+1).
-  float acc[MI][2 * NJ][4] = {};
-  const int nk = (K + BK - 1) / BK;
-  if (nk > 0) load_stage(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    // Slice kt has landed, and every warp is done with slice kt - 1,
-    // whose buffer the next load reuses.
-    cp_async_wait_all();
-    __syncthreads();
-    if (kt + 1 < nk) load_stage((kt + 1) & 1, (kt + 1) * BK);
-    cp_async_commit();
-    const uint16_t* at = as + (kt & 1) * TA::ELEMS;
-    const uint16_t* bt = bs + (kt & 1) * TB::ELEMS;
+  if (t >= HCONSUMERS) {
+    // Producer warp: lane 0 issues every copy.
+    if (t == HCONSUMERS) {
+      prefetch_map(&ta);
+      prefetch_map(&tb);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int st = kt % HST, round = kt / HST;
+        if (round > 0) mbar_wait(&empty[st], (round - 1) & 1);
+        mbar_expect_tx(&full[st], STAGE);
+        unsigned char* as = smem + st * STAGE;
+        unsigned char* bs = as + A_BYTES;
+        const int k0 = kt * HBK;
+        if (A_KM) {
+          tma_load_2d(as, &ta, &full[st], k0, m0);
+        } else {
+          tma_load_2d(as, &ta, &full[st], m0, k0);
+          tma_load_2d(as + PANEL, &ta, &full[st], m0 + 64, k0);
+        }
+        if (B_KM) {
+          tma_load_2d(bs, &tb, &full[st], k0, n0);
+        } else {
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      unsigned af[MI][4];
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        const int m = wm + i * 16;
-        if (A_KC)
-          ldsm_x4(af[i], at + (m + ln.a_m) * TA::PITCH + kk + ln.a_k0);
-        else
-          ldsm_x4_t(af[i], at + (kk + ln.at_k) * TA::PITCH + m + ln.at_m0);
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int n = wn + j * 16;
-        unsigned bf[4];
-        if (B_KC)
-          ldsm_x4(bf, bt + (n + ln.bn_n) * TB::PITCH + kk + ln.bn_half * 8);
-        else
-          ldsm_x4_t(bf, bt + (kk + ln.bt_k) * TB::PITCH + n + ln.bt_half * 8);
-#pragma unroll
-        for (int i = 0; i < MI; ++i) {
-          mma16816(acc[i][2 * j], af[i], bf[0], bf[1]);
-          mma16816(acc[i][2 * j + 1], af[i], bf[2], bf[3]);
+          for (int p = 0; p < 4; ++p)
+            tma_load_2d(bs + p * PANEL, &tb, &full[st], n0 + 64 * p, k0);
         }
       }
     }
+    return;
   }
 
+  // Consumer warpgroup g owns rows 64 g .. 64 g + 63 of the tile.
+  const int g = t / 128, warp = (t % 128) / 32, lane = t % 32;
+  const uint32_t base = smem_u32(smem);
+  if (tma_store && t == 0) prefetch_map(&tc);
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt % HST;
+    mbar_wait(&full[st], (kt / HST) & 1);
+    const uint32_t a = base + st * STAGE, b = a + A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < HBK / 16; ++kk) {
+      const uint64_t da = A_KM ? desc_kmajor(a + g * 8192 + kk * 32)
+                               : desc_mnmajor(a + g * PANEL + kk * 2048, PANEL);
+      const uint64_t db = B_KM ? desc_kmajor(b + kk * 32)
+                               : desc_mnmajor(b + kk * 2048, PANEL);
+      Wgmma<256>::ss<A_KM ? 0 : 1, B_KM ? 0 : 1>(acc, da, db, 1);
+    }
+    wgmma_commit();
+    // The previous k-step's group has retired: release its stage.
+    wgmma_wait<1>();
+    fence_regs(acc);
+    if (kt > 0) mbar_arrive(&empty[(kt - 1) % HST]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // acc[4j + {0, 1}]: row 16 warp + lane / 4 of the warpgroup's 64,
+  // columns n0 + 8j + 2(lane % 4) + {0, 1}; acc[4j + {2, 3}]: 8 rows below.
+  if (tma_store) {
+    // Through shared memory: warpgroup g's [64, 256] as four 128B-swizzled
+    // [64][64] panels (chunk x of row r at chunk x ^ (r % 8), so the eight
+    // rows a store instruction writes fall in distinct banks), then four
+    // TMA stores, which clip the ragged edges. The ring is free once both
+    // warpgroups have retired their last products.
+    named_sync(1, HCONSUMERS);
+    unsigned char* cs = smem + g * 4 * PANEL;
+    const int row = 16 * warp + lane / 4;
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<uint32_t*>(
+            cs + (j / 8) * PANEL + (row + 8 * h) * 128 +
+            (((j % 8) ^ (lane / 4)) * 16) + (lane % 4) * 4) =
+            pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    fence_async_smem();
+    named_sync(2 + g, 128);
+    if (t % 128 == 0) {
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        tma_store_2d(&tc, cs + p * PANEL, n0 + 64 * p, m0 + 64 * g);
+      bulk_commit();
+      bulk_wait_read();
+    }
+    return;
+  }
+  // N % 8 != 0 (no tensor map of c): masked stores from the accumulators.
+  const int r = m0 + 64 * g + 16 * warp + lane / 4;
   const bool pairs = N % 2 == 0;  // then (row * N + col) is even: 4-byte aligned
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
+  for (int j = 0; j < 32; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane % 4);
 #pragma unroll
-    for (int j = 0; j < 2 * NJ; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm + i * 16 + lane / 4 + h * 8;
-        const int col = n0 + wn + j * 8 + (lane % 4) * 2;
-        if (row >= M || col >= N) continue;
-        bf16* p = c + static_cast<size_t>(row) * N + col;
-        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
-        if (pairs) {
-          *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
-        } else {
-          p[0] = __float2bfloat16(v0);
-          if (col + 1 < N) p[1] = __float2bfloat16(v1);
-        }
+    for (int h = 0; h < 2; ++h) {
+      const int row = r + 8 * h;
+      if (row >= M || col >= N) continue;
+      bf16* p = c + static_cast<size_t>(row) * N + col;
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+      } else {
+        p[0] = __float2bfloat16(v0);
+        if (col + 1 < N) p[1] = __float2bfloat16(v1);
       }
+    }
+  }
 }
 
-template <bool A_KC, bool B_KC, bool VEC>
+template <bool A_KM, bool B_KM>
 int launch_bf16(const void* a, const void* b, void* c, int M, int N, int K,
-                int lda, int ldb, int grid, cudaStream_t s) {
-  matmul_bf16_kernel<A_KC, B_KC, VEC>
-      <<<grid, THREADS, bf16_smem_bytes(A_KC, B_KC), s>>>(
-          static_cast<const uint16_t*>(a), static_cast<const uint16_t*>(b),
-          static_cast<bf16*>(c), M, N, K, lda, ldb);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool A_KC, bool B_KC>
-int launch_bf16_vec(bool vec, const void* a, const void* b, void* c, int M,
-                    int N, int K, int lda, int ldb, int grid, cudaStream_t s) {
-  return vec ? launch_bf16<A_KC, B_KC, true>(a, b, c, M, N, K, lda, ldb, grid, s)
-             : launch_bf16<A_KC, B_KC, false>(a, b, c, M, N, K, lda, ldb, grid, s);
+                int lda, int ldb, cudaStream_t s) {
+  CUtensorMap ta, tb, tc = {};
+  const int tma_store = N % 8 == 0;  // c's row pitch, as TMA needs it
+  int err = A_KM ? make_map(&ta, a, M, K, HBM, lda) : make_map(&ta, a, K, M, 64, lda);
+  if (!err)
+    err = B_KM ? make_map(&tb, b, N, K, HBN, ldb) : make_map(&tb, b, K, N, 64, ldb);
+  if (!err && tma_store) err = make_map(&tc, c, M, N, 64);
+  if (err) return err;
+  const int grid = ((M + HBM - 1) / HBM) * ((N + HBN - 1) / HBN);
+  return static_cast<int>(launch_cluster(matmul_bf16_kernel<A_KM, B_KM>, dim3(grid),
+                                         HTHREADS, HSMEM, 1, s, ta, tb, tc,
+                                         static_cast<bf16*>(c), M, N, K,
+                                         tma_store));
 }
 
 // ---- f32 on the SIMT cores ------------------------------------------------
 
+constexpr int THREADS = 256;       // 8 warps
+constexpr int BM = 128, BN = 128;  // the c tile of a block
 constexpr int FBK = 16;
 constexpr int FPITCH = 128 + 4;  // 528-byte rows: float4-aligned
 
@@ -269,7 +294,7 @@ matmul_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
   __shared__ __align__(16) float bs[2][FBK][FPITCH];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   int mt, nt;
-  tile_of(blockIdx.x, M, N, mt, nt);
+  tile_of<BM, BN>(blockIdx.x, M, N, mt, nt);
   const int m0 = mt * BM, n0 = nt * BN;
 
   auto load_stage = [&](int s, int k0) {
@@ -340,27 +365,32 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 // c [M, N] row-major = a [M, K] @ b [K, N]. a_t = 0: a row-major with
 // leading dimension lda (a[m * lda + k]); a_t = 1: a[k * lda + m]. b_t = 0:
-// b[k * ldb + n]; b_t = 1: b[n * ldb + k]. dtype: 0 float32, 1 bfloat16.
-// K may be 0 (c is zeroed).
+// b[k * ldb + n]; b_t = 1: b[n * ldb + k]. dtype: 0 float32, 1 bfloat16
+// (then lda and ldb multiples of 8, a and b 16-byte aligned). K may be 0
+// (c is zeroed).
 extern "C" int tiled_matmul(const void* a, const void* b, void* c, int M, int N,
                             int K, int lda, int ldb, int a_t, int b_t, int dtype,
                             void* stream) {
   if (M <= 0 || N <= 0 || K < 0 || lda <= 0 || ldb <= 0 || dtype < 0 || dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int grid = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool a_kc = !a_t, b_kc = b_t != 0;
+  const bool a_km = !a_t, b_km = b_t != 0;
   if (dtype == 1) {
-    const bool vec = lda % 8 == 0 && ldb % 8 == 0 && aligned16(a) && aligned16(b);
-    if (a_kc)
-      return b_kc ? launch_bf16_vec<true, true>(vec, a, b, c, M, N, K, lda, ldb, grid, s)
-                  : launch_bf16_vec<true, false>(vec, a, b, c, M, N, K, lda, ldb, grid, s);
-    return b_kc ? launch_bf16_vec<false, true>(vec, a, b, c, M, N, K, lda, ldb, grid, s)
-                : launch_bf16_vec<false, false>(vec, a, b, c, M, N, K, lda, ldb, grid, s);
+    if (lda % 8 || ldb % 8 || !aligned16(a) || !aligned16(b))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (K == 0)
+      return static_cast<int>(cudaMemsetAsync(
+          c, 0, static_cast<size_t>(M) * N * sizeof(bf16), s));
+    if (a_km)
+      return b_km ? launch_bf16<true, true>(a, b, c, M, N, K, lda, ldb, s)
+                  : launch_bf16<true, false>(a, b, c, M, N, K, lda, ldb, s);
+    return b_km ? launch_bf16<false, true>(a, b, c, M, N, K, lda, ldb, s)
+                : launch_bf16<false, false>(a, b, c, M, N, K, lda, ldb, s);
   }
-  if (a_kc)
-    return b_kc ? launch_f32<true, true>(a, b, c, M, N, K, lda, ldb, grid, s)
+  const int grid = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  if (a_km)
+    return b_km ? launch_f32<true, true>(a, b, c, M, N, K, lda, ldb, grid, s)
                 : launch_f32<true, false>(a, b, c, M, N, K, lda, ldb, grid, s);
-  return b_kc ? launch_f32<false, true>(a, b, c, M, N, K, lda, ldb, grid, s)
+  return b_km ? launch_f32<false, true>(a, b, c, M, N, K, lda, ldb, grid, s)
               : launch_f32<false, false>(a, b, c, M, N, K, lda, ldb, grid, s);
 }

@@ -34,10 +34,10 @@ KERNEL_DKV = "flash_dkv"
 BLOCK = 128
 # The library's additive mask value (flash_attention.py DEFAULT_MASK_VALUE).
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
-# The forward and dkv kernels keep [64, head_dim] f32 accumulators in a
-# warpgroup's registers, the head_dim cut into slices of 256 (forward) or
-# 128 (dkv) columns over the blocks of a thread-block cluster of at most 8;
-# flash_dq splits a [16, head_dim] accumulator over 8 warps: head_dim <= 1024.
+# The three kernels keep [64, head_dim] f32 accumulators in a warpgroup's
+# registers, the head_dim cut into slices of 256 (forward and dq) or 128
+# (dkv) columns over the blocks of a thread-block cluster of at most 8:
+# head_dim <= 1024.
 MAX_HEAD_DIM = 1024
 
 

@@ -175,17 +175,40 @@ def tiled_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.to(acc) @ b.to(acc)).to(a.dtype)
 
 
+# The bf16 kernel reads its operands through TMA, which needs a leading
+# dimension that is a multiple of 8 elements (16 bytes) and a 16-byte base.
+TMA_LD, TMA_ALIGN = 8, 16
+
+
 def _operand(t: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
-    """(tensor, transposed flag, leading dimension) of a 2-D operand the
-    kernel reads in place: row-major (flag 0), or the transpose of a
-    row-major matrix (flag 1), as ``b.T`` and ``a.T`` in the VJP are. Any
-    other strides go through ``.contiguous()``."""
+    """(tensor, transposed flag, leading dimension) of a 2-D operand as the
+    kernel reads it. In place when it is row-major (flag 0) or the
+    transpose of a row-major matrix (flag 1), as ``b.T`` and ``a.T`` in the
+    VJP are, and, in bf16, its leading dimension is a multiple of
+    ``TMA_LD`` on a ``TMA_ALIGN``-byte base. Otherwise a row-major copy: in
+    f32 ``.contiguous()``; in bf16 a fresh buffer whose leading dimension
+    is rounded up to a multiple of ``TMA_LD`` (the columns past the matrix
+    are never read)."""
     r, c = t.shape
+    tma = t.dtype == torch.bfloat16
+
+    def fits(ld: int) -> bool:
+        return not tma or (ld % TMA_LD == 0 and t.data_ptr() % TMA_ALIGN == 0)
+
     if t.stride(1) == 1 and (r == 1 or t.stride(0) >= c):
-        return t, 0, t.stride(0) if r > 1 else max(c, 1)
-    if t.stride(0) == 1 and (c == 1 or t.stride(1) >= r):
-        return t, 1, t.stride(1) if c > 1 else max(r, 1)
-    return t.contiguous(), 0, max(c, 1)
+        ld = t.stride(0) if r > 1 else max(c, 1)
+        if fits(ld):
+            return t, 0, ld
+    elif t.stride(0) == 1 and (c == 1 or t.stride(1) >= r):
+        ld = t.stride(1) if c > 1 else max(r, 1)
+        if fits(ld):
+            return t, 1, ld
+    if not tma:
+        return t.contiguous(), 0, max(c, 1)
+    ld = -(-max(c, 1) // TMA_LD) * TMA_LD
+    buf = torch.empty((r, ld), dtype=t.dtype, device=t.device)
+    buf[:, :c] = t
+    return buf, 0, ld
 
 
 def _launch_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

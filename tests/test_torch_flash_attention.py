@@ -32,10 +32,12 @@ REF_REL_TOL = 2e-2
 # the same function, summed in another order.
 F32_TOL = dict(rtol=1e-4, atol=1e-5)
 
-# (1, 1, 256, 384): a head_dim that the CUDA forward's cluster split cuts
-# raggedly (256 + 128) and the dkv kernel over a cluster of 3; the library
-# kernel takes head_dims above 128 only in multiples of 128.
-SHAPES = [(1, 2, 256, 128), (1, 2, 384, 64), (1, 1, 256, 384)]
+# (1, 1, 256, 384): a head_dim that the CUDA forward's and dq's cluster
+# split cuts raggedly (256 + 128) and the dkv kernel over a cluster of 3;
+# (1, 1, 256, 1024): the bench head_dim, split over a cluster by all three
+# kernels (4 blocks forward and dq, 8 dkv). The library kernel takes
+# head_dims above 128 only in multiples of 128.
+SHAPES = [(1, 2, 256, 128), (1, 2, 384, 64), (1, 1, 256, 384), (1, 1, 256, 1024)]
 
 
 def _inputs(shape, seed=0):

@@ -226,6 +226,45 @@ def test_the_vjp_operands_are_read_in_place():
     assert flag == 0 and ld == 24 and t.is_contiguous()
 
 
+def _bf16(rows, cols, seed=28):
+    return torch.from_numpy(_np((rows, cols), seed)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("make,flag,ld,in_place", [
+    (lambda: _bf16(32, 48), 0, 48, True),
+    (lambda: _bf16(48, 32).T, 1, 32, True),
+    (lambda: _bf16(32, 64)[:, :40], 0, 64, True),
+    (lambda: _bf16(32, 64)[:, 8:], 0, 64, True),
+    (lambda: _bf16(32, 64)[8:].T, 1, 64, True),
+    (lambda: _bf16(13, 7), 0, 8, False),
+    (lambda: _bf16(1, 12), 0, 16, False),
+    (lambda: _bf16(30, 9).T, 0, 32, False),
+    (lambda: _bf16(32, 56)[:, 1:], 0, 56, False),
+    (lambda: _bf16(32, 49)[:, 1:], 0, 48, False),
+    (lambda: _bf16(32, 48)[:, ::2], 0, 24, False),
+], ids=["row_major", "transposed", "row_major_ld64", "offset_16_bytes",
+        "transposed_offset", "odd_ld", "one_row_ld12", "transposed_odd_ld",
+        "offset_2_bytes", "offset_and_odd_ld", "strided"])
+def test_bf16_operands_follow_the_tma_layout_rule(make, flag, ld, in_place):
+    """The bf16 kernel reads its operands through TMA: row-major and
+    transposed operands whose leading dimension is a multiple of 8, on a
+    16-byte base, are read in place with the right flag and leading
+    dimension; an odd leading dimension, a storage offset off 16 bytes or
+    other strides get a row-major copy, on a 16-byte base, with the
+    leading dimension rounded up to a multiple of 8 and equal values."""
+    t = make()
+    got, f, l = torch_k._operand(t)
+    assert (f, l) == (flag, ld)
+    assert (got.data_ptr() == t.data_ptr()) == in_place
+    assert l % torch_k.TMA_LD == 0 and got.data_ptr() % torch_k.TMA_ALIGN == 0
+    r, c = t.shape
+    if f:
+        assert got.stride() == (1, l) and torch.equal(got, t)
+    else:
+        assert got.stride(1) == 1 and (r == 1 or got.stride(0) == l)
+        assert torch.equal(got[:, :c], t)
+
+
 # -- the slice as a whole ----------------------------------------------------
 
 def _torch_chain(x, ln2, w1, w2):
