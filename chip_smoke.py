@@ -56,13 +56,16 @@ Phases, each fatal on failure:
     flash and with einsum on the same weights, tokens/s of both and their
     NLL agreement;
  9. standalone ops (the kernels' checks run with phase 2): rmsnorm at [4,
-    1024, 2048] in bf16 and f32, and tiled_matmul at the FFN half's four
-    bf16 products (forward, and the two VJP products with a transposed
-    operand) and at [4096, 2048] @ [2048, 2048] in f32, each timed beside
-    its plain version, one library call (F.rms_norm, torch.matmul) and the
-    bound, with tiled_matmul's TFLOP/s and the ptxas report of its
+    1024, d], d 128, 512, 2048, 4096 and 8192, in bf16 and f32, and
+    tiled_matmul at the FFN half's four bf16 products (forward, and the two
+    VJP products with a transposed operand) and at [4096, 2048] @ [2048,
+    2048] in f32 in all four orientations, each timed beside its plain
+    version, one library call (F.rms_norm, torch.matmul) and the bound
+    (rmsnorm and F.rms_norm also with the L2 emptied before each call),
+    with tiled_matmul's TFLOP/s and the ptxas report of both kernels'
     instantiations (a spill is fatal); untimed at small, odd, ragged,
-    unaligned, mixed-dtype and empty shapes. Then the whole-op path: the FFN half of a Block built from
+    unaligned, mixed-dtype and empty shapes and, in f32, at [512, 16384] @
+    [16384, 512]. Then the whole-op path: the FFN half of a Block built from
     rmsnorm and tiled_matmul alone, on seed-0 bench weights cast to bf16
     and a [4096, 2048] bf16 row block, forward and autograd to x, ln2, w1
     and w2: exactly one rmsnorm and two tiled_matmul launches forward and
@@ -95,6 +98,7 @@ import time
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
 PEAK_F32_FLOPS = 67e12  # non-tensor FP32
+PEAK_TF32_FLOPS = 495e12  # tensor-core TF32
 
 SCORE_BATCH, SCORE_BATCHES = 4, 4
 # The fused CE's shape at bench width: evaluate_nll on 4x1024 tokens gives
@@ -166,6 +170,13 @@ TRAIN_BATCH, TRAIN_STEPS = 4, 5  # per step: 4x1024 tokens; plus one warm-up
 # of hidden states; the FFN half's products on 4x1024 token rows, d_model
 # 2048, d_ff 16384; the f32 product at [4096, 2048] @ [2048, 2048].
 OPS_TOKENS, OPS_D, OPS_FF = 4096, 2048, 16384
+# rmsnorm is also timed over [4, 1024, d] at these widths, in bf16 and f32:
+# the rows-a-warp kernel's lane groups of 16 and 32 lanes at 1 to 8 chunks
+# a lane, with and without the next row's prefetch, and the block-a-row
+# kernel above 8 chunks a lane (f32 from d 2048, bf16 from d 4096).
+RMS_WIDTHS = (128, 512, 2048, 4096, 8192)
+# The f32 product's long sum, untimed: [512, 16384] @ [16384, 512].
+LONG_K = 16384
 # rmsnorm kernel vs plain version, per element: the row's f32 sum of
 # squares is taken in another order, so r differs in its last bits; a bf16
 # output may then round to the neighbouring value, one ulp, at most 2**-7
@@ -173,10 +184,11 @@ OPS_TOKENS, OPS_D, OPS_FF = 4096, 2048, 16384
 RMS_TOL = {"torch.bfloat16": dict(rtol=2 ** -7, atol=1e-6),
            "torch.float32": dict(rtol=1e-5, atol=1e-5)}
 # tiled_matmul kernel vs plain version, max|err| / max|plain|, by output
-# dtype: both sum exact products in f32 in another order; a bf16 output
-# then rounds once (one ulp, 2**-7 relative at most). f32 must be real f32:
-# sums of K products in another order differ by ~1e-7 relative, where TF32
-# would differ by ~1e-3.
+# dtype: bf16: both sum exact products in f32 in another order; a bf16
+# output then rounds once (one ulp, 2**-7 relative at most). f32 must be
+# real f32: sums of K products in another order differ by ~1e-7 relative,
+# where one TF32 product would differ by ~3e-4; the kernel's three TF32
+# products (split operands) drop less than 2**-20 of each product.
 MATMUL_REL_TOL = {"torch.bfloat16": 2 ** -7, "torch.float32": 1e-5}
 
 
@@ -203,6 +215,31 @@ def time_ms(fn, iters: int, warmup: int = 2, queued: bool = False) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_cold_ms(fn, iters: int) -> float:
+    """Device ms a call of ``fn`` with the L2 cache emptied of its inputs
+    before each call (a 128 MB buffer read between calls, outside the
+    timed span, which leaves clean lines: nothing to write back), as a
+    caller whose inputs were written long before would find it. Each call
+    is held back behind a sleeping kernel (~1 ms, longer than the host
+    takes to issue the flush and the call), so the span holds no host
+    time."""
+    import torch
+
+    flush = torch.ones(2 ** 25, dtype=torch.float32, device="cuda")
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda._sleep(2_000_000)
+        flush.sum()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
 
 
 def check_kernel_case(name, x, w, labels, timed: bool):
@@ -1028,19 +1065,25 @@ def rmsnorm_bound_ms(x, g):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def matmul_bound_ms(m: int, n: int, k: int, dtype):
+def matmul_bound_ms(m: int, n: int, k: int, dtype, ffma: bool = False):
+    """Operations: one product at the bf16 tensor-core peak; in f32, the
+    kernel's three TF32 products at the TF32 peak (``ffma``: one product at
+    the FFMA cores' peak instead). Bytes: a, b read and c written once."""
     import torch
 
-    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+    if dtype == torch.bfloat16:
+        t_ops = 2.0 * m * n * k / PEAK_BF16_FLOPS
+    else:
+        t_ops = 2.0 * m * n * k / PEAK_F32_FLOPS if ffma else 6.0 * m * n * k / PEAK_TF32_FLOPS
     size = torch.empty((), dtype=dtype).element_size()
-    t_ops = 2.0 * m * n * k / peak
     t_bytes = size * (m * k + k * n + m * n) / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
 def check_rmsnorm_case(name, x, g, timed: bool):
     """The rmsnorm kernel vs rmsnorm_plain on the same inputs; when
-    ``timed``, the kernel's, plain version's and F.rms_norm's ms and the
+    ``timed``, the kernel's, plain version's and F.rms_norm's ms (back to
+    back, and the kernel's and F.rms_norm's with the L2 emptied) and the
     bound."""
     import torch
     import torch.nn.functional as F
@@ -1065,6 +1108,10 @@ def check_rmsnorm_case(name, x, g, timed: bool):
         row["plain_ms"] = time_ms(lambda: ok.rmsnorm_plain(x, g), 20, queued=True)
         row["library_ms"] = time_ms(
             lambda: F.rms_norm(x, (d,), g, eps=1e-6), 50, queued=True)
+        # Back to back, x and y of the smaller shapes stay in the 50 MB L2
+        # (bf16 [4096, 2048]: 33.6 MB); cold, each call reads x from HBM.
+        row["cold_ms"] = time_cold_ms(lambda: ok.rmsnorm(x, g), 20)
+        row["library_cold_ms"] = time_cold_ms(lambda: F.rms_norm(x, (d,), g, eps=1e-6), 20)
         row["bound_ms"], row["bound_by"] = rmsnorm_bound_ms(x, g)
     print(f"kernel rmsnorm {json.dumps(row)}")
     return row
@@ -1100,6 +1147,8 @@ def check_matmul_case(name, a, b, timed: bool):
                                   queued=True)
         row["library_ms"] = time_ms(lambda: torch.matmul(a, b), 10, queued=True)
         row["bound_ms"], row["bound_by"] = matmul_bound_ms(m, n, k, ct)
+        if ct == torch.float32:
+            row["ffma_bound_ms"] = matmul_bound_ms(m, n, k, ct, ffma=True)[0]
         row["tflops"] = 2.0 * m * n * k / row["ms"] / 1e9
         row["library_tflops"] = 2.0 * m * n * k / row["library_ms"] / 1e9
     print(f"kernel tiled_matmul {json.dumps(row)}")
@@ -1114,6 +1163,7 @@ def phase_ops_kernels(device):
     with max_abs_err the worst over every case."""
     import torch
 
+    print_ptxas("rmsnorm", "ops")
     print_ptxas("tiled_matmul", "ops")
     gen = torch.Generator(device=device).manual_seed(6)
     bf, f32 = torch.bfloat16, torch.float32
@@ -1122,16 +1172,25 @@ def phase_ops_kernels(device):
         return (scale * torch.randn(shape, generator=gen, device=device)).to(dtype)
 
     T, D, FF = OPS_TOKENS, OPS_D, OPS_FF
-    rms = [check_rmsnorm_case("bench_bf16", randn(4, T // 4, D), randn(D, dtype=bf), True),
-           check_rmsnorm_case("bench_f32", randn(4, T // 4, D, dtype=f32),
-                              randn(D, dtype=f32), True)]
+    rms = []
+    for d in RMS_WIDTHS:
+        for dt, tag in ((bf, "bf16"), (f32, "f32")):
+            name = f"bench_{tag}" if d == D else f"d{d}_{tag}"
+            rms.append(check_rmsnorm_case(name, randn(4, T // 4, d, dtype=dt),
+                                          randn(d, dtype=dt), True))
     for name, shape, xd, gd in (("64x128", (64, 128), f32, f32),
                                 ("3x7x128", (3, 7, 128), f32, bf),
                                 ("3x7x128_bf16", (3, 7, 128), bf, f32),
                                 ("d129", (33, 129), bf, bf),
                                 ("d129_f32", (33, 129), f32, f32),
                                 ("d7", (5, 7), bf, f32),
-                                ("rows1", (1, D), bf, bf)):
+                                ("rows1", (1, D), bf, bf),
+                                # lane groups of 4 and 8, a lane's chunks
+                                # past the row, the block-a-row kernel
+                                ("d8", (11, 8), bf, f32),
+                                ("d40", (9, 40), bf, bf),
+                                ("d264", (37, 264), bf, f32),
+                                ("d2052_f32", (5, 2052), f32, f32)):
         rms.append(check_rmsnorm_case(name, randn(*shape, dtype=xd),
                                       1.0 + randn(shape[-1], dtype=gd, scale=0.1), False))
 
@@ -1140,10 +1199,19 @@ def phase_ops_kernels(device):
     mm = [check_matmul_case("ffn_w1", h, w1, True),
           check_matmul_case("ffn_w2", g, w2, True),
           check_matmul_case("vjp_dA_dY_w1T", dy, w1.T, True),
-          check_matmul_case("vjp_dB_hT_dY", h.T, dy, True),
-          check_matmul_case("f32", randn(T, D, dtype=f32),
-                            randn(D, D, dtype=f32, scale=0.02), True)]
+          check_matmul_case("vjp_dB_hT_dY", h.T, dy, True)]
     del g, dy
+    # f32 in the four orientations the VJP gives, each read in place: b
+    # row-major and b = w^T (K-major), a row-major and a = h^T (MN-major).
+    a32, b32 = randn(T, D, dtype=f32), randn(D, D, dtype=f32, scale=0.02)
+    h32, w32 = randn(D, T, dtype=f32), randn(D, D, dtype=f32, scale=0.02)
+    mm += [check_matmul_case("f32", a32, b32, True),
+           check_matmul_case("f32_b_wT", a32, w32.T, True),
+           check_matmul_case("f32_a_hT", h32.T, b32, True),
+           check_matmul_case("f32_a_hT_b_wT", h32.T, w32.T, True)]
+    del a32, b32, h32, w32
+    mm.append(check_matmul_case(f"f32_long_k_{LONG_K}", randn(512, LONG_K, dtype=f32),
+                                randn(LONG_K, 512, dtype=f32), False))
     for dt in (bf, f32):
         mm.append(check_matmul_case(f"13x7x9_ones_{dt}", torch.ones(13, 7, dtype=dt, device=device),
                                     torch.ones(7, 9, dtype=dt, device=device), False))
@@ -1152,16 +1220,16 @@ def phase_ops_kernels(device):
         mm.append(check_matmul_case(f"1000x999x1001_transposed_{dt}", randn(999, 1000, dtype=dt).T,
                                     randn(1001, 999, dtype=dt).T, False))
         # Leading dimensions that are multiples of 8 around ragged extents:
-        # read in place, with boxes partly outside the matrix (bf16: TMA's
-        # zero fill; f32: cp.async's). K = 7, 999 and 1001 above go to the
-        # bf16 kernel through the aligned copy.
+        # read in place, with boxes partly outside the matrix (TMA's zero
+        # fill). K = 7, 999 and 1001 above go to the bf16 kernel through
+        # the aligned copy, and 7 and 999 to the f32 kernel.
         mm.append(check_matmul_case(f"partial_chunks_{dt}", randn(1000, 1000, dtype=dt)[:, :999],
                                     randn(999, 1008, dtype=dt)[:, :1001], False))
-        # M and N not multiples of the 128 x 256 tile, N a multiple of 8:
-        # the bf16 kernel's TMA stores clip both edges of c.
+        # M and N not multiples of the 128 x 256 tile (f32: 128 x 128), N a
+        # multiple of 8: the bf16 kernel's TMA stores clip both edges of c.
         mm.append(check_matmul_case(f"ragged_tma_store_{dt}", randn(1000, 999, dtype=dt),
                                     randn(999, 1000, dtype=dt), False))
-        # A pointer off its 16-byte boundary: the aligned copy (bf16).
+        # A pointer off its 16-byte boundary: the aligned copy.
         mm.append(check_matmul_case(f"unaligned_{dt}", randn(256, 257, dtype=dt)[:, 1:],
                                     randn(256, 384, dtype=dt), False))
         for m, k, n in ((0, 5, 7), (5, 0, 7), (5, 3, 0)):
@@ -1169,9 +1237,10 @@ def phase_ops_kernels(device):
                                         randn(k, n, dtype=dt), False))
     mm.append(check_matmul_case("mixed_bf16_f32", randn(300, 200), randn(200, 100, dtype=f32),
                                 False))
-    rms[0]["max_abs_err"] = max(r["max_abs_err"] for r in rms)
+    rms_row = next(r for r in rms if r["case"] == "bench_bf16")
+    rms_row["max_abs_err"] = max(r["max_abs_err"] for r in rms)
     mm[0]["max_abs_err"] = max(r["max_abs_err"] for r in mm)
-    return {"rmsnorm": rms[0], "tiled_matmul": mm[0]}
+    return {"rmsnorm": rms_row, "tiled_matmul": mm[0]}
 
 
 def ffn_half_ops(x, ln2, w1, w2):

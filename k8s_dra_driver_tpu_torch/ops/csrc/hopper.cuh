@@ -3,15 +3,18 @@
 //  - wgmma: the shared-memory matrix descriptor for 128-byte-swizzled
 //    tiles, wgmma.mma_async m64nNk16 bf16 -> f32 with A from shared memory
 //    (SS, K-major or MN-major: trans-a) or from registers (RS), B K-major
-//    or MN-major (trans-b), and wgmma.fence / commit_group / wait_group;
+//    or MN-major (trans-b), m64n128k8 TF32 -> f32 (SS, both K-major), the
+//    round-to-TF32 conversion, wgmma.fence / commit_group / wait_group, and
+//    setmaxnreg (registers moved from a producer to consumer warpgroups);
 //  - mbarriers: init, arrive, arrive.expect_tx, try_wait.parity; named
 //    barriers over part of a block;
 //  - TMA: cp.async.bulk.tensor 2D loads from a __grid_constant__
 //    CUtensorMap and 2D stores to one (bulk groups, the async-proxy
 //    fence), tensor-map prefetch, 1D bulk copies, and the host-side
-//    encoder of a [rows, cols] bf16 map with a [box_rows, 64]
-//    128-byte-swizzled box, with any leading dimension that is a multiple
-//    of 8, fetched through the runtime's driver entry point (no -lcuda);
+//    encoder of a [rows, cols] bf16 or f32 map (128-byte-swizzled boxes
+//    of one 128-byte row, or unswizzled ones), with any leading dimension
+//    that is a multiple of 16 bytes, fetched through the runtime's driver
+//    entry point (no -lcuda);
 //  - clusters: barrier.cluster, %cluster_ctarank, mapa, ld.shared::cluster
 //    and st.async stores into another block's shared memory that complete
 //    on its mbarrier.
@@ -73,6 +76,16 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
+// Registers a thread of this warpgroup may hold from here on (a multiple of
+// 8, 24 to 256): one warpgroup gives up what another takes.
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
 // Keeps the compiler from moving accumulator reads or writes across a
 // wgmma that is still in flight.
 template <int R>
@@ -85,6 +98,14 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from
+// zero: an f32 bit pattern whose low 13 bits are zero.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
 // ---------------------------------------------------------- mbarrier ---
@@ -227,12 +248,15 @@ __device__ __forceinline__ uint4 as_uint4(float4 v) {
                     __float_as_uint(v.z), __float_as_uint(v.w));
 }
 
-// Host: a map of the bf16 matrix [rows, cols] with row pitch `ld`
-// elements (cols when 0; a multiple of 8, base 16-byte aligned) read in
-// [box_rows <= 256, 64] boxes with the 128B swizzle. Rows and columns
-// outside the matrix read as zeros. Returns a CUresult (0 on success).
-inline int make_map(CUtensorMap* map, const void* base, uint64_t rows,
-                    uint64_t cols, uint32_t box_rows, uint64_t ld = 0) {
+// Host: a map of the 2-byte (bf16) or 4-byte (f32) matrix [rows, cols]
+// with row pitch `ld` elements (cols when 0; ld * elem_bytes a multiple
+// of 16, base 16-byte aligned) read in [box_rows, box_cols] boxes (each
+// at most 256), with the 128B swizzle (box_cols * elem_bytes == 128) or
+// none. Rows and columns outside the matrix read as zeros. Returns a
+// CUresult (0 on success).
+inline int encode_map(CUtensorMap* map, const void* base, uint64_t rows,
+                      uint64_t cols, uint32_t box_rows, uint32_t box_cols,
+                      uint64_t ld, int elem_bytes, bool swizzle) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                               void*, const cuuint64_t*, const cuuint64_t*,
                               const cuuint32_t*, const cuuint32_t*,
@@ -255,14 +279,22 @@ inline int make_map(CUtensorMap* map, const void* base, uint64_t rows,
     encode = reinterpret_cast<Encode>(fn);
   }
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {(ld ? ld : cols) * 2};
-  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint64_t strides[1] = {(ld ? ld : cols) * elem_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t estr[2] = {1, 1};
   return static_cast<int>(encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-      strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+      map,
+      elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      2, const_cast<void*>(base), dims, strides, box, estr,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+// The bf16 matrix [rows, cols] in [box_rows, 64] boxes, 128B-swizzled.
+inline int make_map(CUtensorMap* map, const void* base, uint64_t rows,
+                    uint64_t cols, uint32_t box_rows, uint64_t ld = 0) {
+  return encode_map(map, base, rows, cols, box_rows, 64, ld, 2, true);
 }
 
 // Launch `kernel` on a grid whose x extent is a multiple of `cluster`,
@@ -535,6 +567,49 @@ struct Wgmma<256> {
           "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
           "r"(scale_d), "n"(TB));
+  }
+};
+
+// wgmma.mma_async m64nNk8, TF32 inputs (f32 bit patterns whose low 13
+// bits the tensor core ignores), f32 accumulators d[N / 2] in the layout
+// above. TF32 takes no transpose: A and B both K-major, from shared
+// memory (a k-step of 8 is 32 bytes, as bf16's 16).
+template <int N>
+struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<128> {
+  __device__ __forceinline__ static void ss(float (&d)[64], uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+        "%62, %63"
+        "}, %64, %65, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(scale_d));
   }
 };
 

@@ -1,8 +1,7 @@
 // Tensor-core and copy primitives shared by the port's mma.sync kernels
-// (fused_ce_dx.cu, fused_ce_dw.cu) and tiled_matmul.cu's f32 path (its
-// 4-byte cp.async):
+// (fused_ce_dx.cu, fused_ce_dw.cu):
 // cp.async copies into shared memory
-// (16 bytes, 16 bytes of which only a leading part is read, or 4), ldmatrix
+// (16 bytes, or 16 bytes of which only a leading part is read), ldmatrix
 // (plain and .trans) fragment loads, and mma.sync m16n8k16 (bf16 in, f32
 // accumulate), with the per-lane ldmatrix offsets of the operand layouts
 // the kernels use.
@@ -26,15 +25,6 @@ __device__ __forceinline__ void cp_async16_n(void* smem, const void* gmem,
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool pred) {
   cp_async16_n(smem, gmem, pred ? 16 : 0);  // 0 source bytes: all zeroed
-}
-
-// One 4-byte word, zeroed when !pred.
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
-                                          bool pred) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(n));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

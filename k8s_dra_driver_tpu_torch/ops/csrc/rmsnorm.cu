@@ -9,17 +9,29 @@
 // a handful of flops between; at [4096, 2048] bf16 that is 33.6 MB, 10.0 us
 // at 3.35 TB/s (f32: 67.1 MB, 20.0 us). g (d elements) stays in L1/L2.
 //
-// Design. The Pallas kernel kept a (block_rows, d) block in VMEM. Here one
-// block of up to 256 threads owns a row, so no state crosses blocks and
-// the 4096 rows of the flagship's shape give ~31 blocks a SM. Where d is a
-// whole number of 16-byte chunks and the pointers are 16-byte aligned
-// (VEC), each thread loads whole chunks and keeps up to CACHE of them in
-// registers, so at d = 2048 the row is read from memory once (one chunk a
-// thread in bf16, two in f32); chunks past that are read again for the
-// output. Otherwise (odd d such as 7 or 129) each thread walks single
-// elements and reads its row twice. The f32 sum of squares is reduced with
-// warp shuffles, then across warps through shared memory; rsqrt(mean +
-// eps) is taken once a row.
+// Design. The Pallas kernel kept a (block_rows, d) block in VMEM. Here,
+// where d is a whole number of 16-byte chunks and the pointers are 16-byte
+// aligned (the vector kernels), a row lives in registers:
+//  - Rows a warp. A group of L lanes (a power of two, 4 to 32) owns a row,
+//    each lane NC chunks of it as raw 16-byte words (chunks = d / V, V
+//    elements a chunk; NC * L >= chunks): at d = 2048 in bf16, 8 chunks a
+//    lane; at d = 128 in bf16 L = 16, two rows a warp. The f32 sum of
+//    squares is reduced with L-lane shuffles only: no shared memory and no
+//    block barrier.
+//  - Walk. A grid of as many blocks of 8 warps as fit the card at once
+//    (at bf16 [4096, 2048], every row at once) walks the rows. At up to 4
+//    chunks a lane each lane group issues the loads of its next row
+//    before it stores this one; at 8 the second buffer would cost the SM
+//    half its warps, and was slower. g (d elements, in L1) is read once a
+//    row.
+//  - Wide rows. Above 8 chunks a lane (bf16 d > 2048, f32 d > 1024) a
+//    block of up to 256 threads owns a row instead, keeps up to CACHE
+//    chunks a thread in registers and sums across warps through shared
+//    memory: at 16 chunks a lane the rows-a-warp form was no faster in
+//    f32 and slower in bf16.
+// Otherwise (odd d such as 7 or 129, or an unaligned pointer) a block a
+// row walks single elements and reads its row twice. rsqrt(mean + eps) is
+// taken once a row.
 //
 // Plain C interface (loaded with ctypes): rmsnorm returns the CUDA error
 // code of the launch, 0 on success. It allocates nothing and launches on
@@ -33,7 +45,8 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int MAX_THREADS = 256;
+constexpr int MAX_THREADS = 256;  // the block-a-row kernels
+constexpr int ROW_THREADS = 256;  // 8 warps: the rows-a-warp kernel
 constexpr int CACHE = 4;  // 16-byte chunks of x a thread keeps in registers
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -69,6 +82,81 @@ __device__ __forceinline__ void store_f(T* __restrict__ p, const float (&v)[N]) 
   *reinterpret_cast<int4*>(p) = *reinterpret_cast<const int4*>(tmp);
 }
 
+// One 16-byte word of N elements of T as floats.
+template <typename T, int N>
+__device__ __forceinline__ void unpack(const uint4& w, float (&out)[N]) {
+  alignas(16) T tmp[N];
+  *reinterpret_cast<uint4*>(tmp) = w;
+#pragma unroll
+  for (int i = 0; i < N; ++i) out[i] = to_f(tmp[i]);
+}
+
+// Rows in registers: see "Rows a warp" above. chunks <= NC * L <= 256.
+template <typename T, typename G, int NC, int L>
+__global__ void __launch_bounds__(ROW_THREADS)
+rmsnorm_rows_kernel(const T* __restrict__ x, const G* __restrict__ g,
+                    T* __restrict__ y, int rows, int chunks, float eps) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int RPW = 32 / L;  // rows a warp holds at once
+  // The next row's loads go out before this row's stores only where the
+  // second buffer costs few registers: at 8 chunks a lane it would halve
+  // the warps an SM holds, and all of them in flight at once are faster.
+  constexpr bool PREFETCH = NC <= 4;
+  const int lane = threadIdx.x % 32, sub = lane % L;
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) / 32;
+  const int stride = gridDim.x * blockDim.x / 32 * RPW;
+  const size_t d = static_cast<size_t>(chunks) * V;
+
+  auto load_row = [&](int row, uint4 (&w)[NC]) {
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      const int c = sub + i * L;
+      w[i] = row < rows && c < chunks
+                 ? *reinterpret_cast<const uint4*>(x + row * d + c * V)
+                 : make_uint4(0, 0, 0, 0);
+    }
+  };
+
+  // The loop bound is the same for every lane of the warp, so the shuffles
+  // always see all 32; lanes past the last row load zeros, store nothing.
+  int row = warp * RPW + lane / L;
+  uint4 cur[NC], nxt[NC];
+  if constexpr (PREFETCH) load_row(row, cur);
+  for (int base = warp * RPW; base < rows; base += stride, row += stride) {
+    if constexpr (PREFETCH) load_row(row + stride, nxt);
+    else load_row(row, cur);
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < NC; ++i) {
+      float v[V];
+      unpack<T, V>(cur[i], v);
+#pragma unroll
+      for (int e = 0; e < V; ++e) ss += v[e] * v[e];
+    }
+#pragma unroll
+    for (int o = L / 2; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+    const float r = rsqrtf(ss / static_cast<float>(d) + eps);
+    if (row < rows) {
+#pragma unroll
+      for (int i = 0; i < NC; ++i) {
+        const int c = sub + i * L;
+        if (c < chunks) {
+          float v[V], gv[V];
+          unpack<T, V>(cur[i], v);
+          load_f<G, V>(g + c * V, gv);
+#pragma unroll
+          for (int e = 0; e < V; ++e) v[e] = v[e] * r * gv[e];
+          store_f<T, V>(y + row * d + c * V, v);
+        }
+      }
+    }
+    if constexpr (PREFETCH) {
+#pragma unroll
+      for (int i = 0; i < NC; ++i) cur[i] = nxt[i];
+    }
+  }
+}
+
 // Sum of v over the block (blockDim.x a multiple of 32), returned to every
 // thread: shuffles within each warp, then each warp sums the partials.
 __device__ __forceinline__ float block_sum(float v, float* red) {
@@ -83,7 +171,8 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return v;
 }
 
-// VEC: d % V == 0 and x, y, g 16-byte aligned (V elements of T in a chunk).
+// Wide rows: d % V == 0 and x, y, g 16-byte aligned (V elements of T in a
+// chunk).
 template <typename T, typename G>
 __global__ void __launch_bounds__(MAX_THREADS)
 rmsnorm_vec_kernel(const T* __restrict__ x, const G* __restrict__ g,
@@ -161,6 +250,28 @@ int threads_for(int work) {
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// As many blocks as fit the card at once, and no more than the rows need.
+template <typename T, typename G, int NC, int L>
+cudaError_t launch_rows(const T* x, const G* g, T* y, int rows, int chunks,
+                        float eps, cudaStream_t stream) {
+  auto kernel = rmsnorm_rows_kernel<T, G, NC, L>;
+  static int resident = 0;  // blocks on the card at once
+  if (!resident) {
+    int dev, sms, per_sm;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (!err) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (!err) err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                                  ROW_THREADS, 0);
+    if (err) return err;
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const int per_block = ROW_THREADS / 32 * (32 / L);  // rows a block holds
+  const int need = (rows + per_block - 1) / per_block;
+  kernel<<<need < resident ? need : resident, ROW_THREADS, 0, stream>>>(
+      x, g, y, rows, chunks, eps);
+  return cudaGetLastError();
+}
+
 template <typename T, typename G>
 int launch(const void* x, const void* g, void* y, int rows, int d, float eps,
            cudaStream_t stream) {
@@ -168,11 +279,24 @@ int launch(const void* x, const void* g, void* y, int rows, int d, float eps,
   const T* xt = static_cast<const T*>(x);
   const G* gt = static_cast<const G*>(g);
   T* yt = static_cast<T*>(y);
-  if (d % V == 0 && aligned16(x) && aligned16(y) && aligned16(g))
-    rmsnorm_vec_kernel<T, G><<<rows, threads_for(d / V), 0, stream>>>(xt, gt, yt, d, eps);
-  else
+  if (d % V || !aligned16(x) || !aligned16(y) || !aligned16(g)) {
     rmsnorm_scalar_kernel<T, G><<<rows, threads_for(d), 0, stream>>>(xt, gt, yt, d, eps);
-  return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int chunks = d / V;
+  cudaError_t err;
+  if (chunks <= 4) err = launch_rows<T, G, 1, 4>(xt, gt, yt, rows, chunks, eps, stream);
+  else if (chunks <= 8) err = launch_rows<T, G, 1, 8>(xt, gt, yt, rows, chunks, eps, stream);
+  else if (chunks <= 16) err = launch_rows<T, G, 1, 16>(xt, gt, yt, rows, chunks, eps, stream);
+  else if (chunks <= 32) err = launch_rows<T, G, 1, 32>(xt, gt, yt, rows, chunks, eps, stream);
+  else if (chunks <= 64) err = launch_rows<T, G, 2, 32>(xt, gt, yt, rows, chunks, eps, stream);
+  else if (chunks <= 128) err = launch_rows<T, G, 4, 32>(xt, gt, yt, rows, chunks, eps, stream);
+  else if (chunks <= 256) err = launch_rows<T, G, 8, 32>(xt, gt, yt, rows, chunks, eps, stream);
+  else {
+    rmsnorm_vec_kernel<T, G><<<rows, threads_for(chunks), 0, stream>>>(xt, gt, yt, d, eps);
+    err = cudaGetLastError();
+  }
+  return static_cast<int>(err);
 }
 
 }  // namespace

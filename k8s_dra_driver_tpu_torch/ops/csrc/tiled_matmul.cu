@@ -10,8 +10,10 @@
 //
 // Bound: operations. At the flagship's FFN shape, [4096, 2048] @ [2048,
 // 16384] in bf16, 2*M*N*K = 2.75e11 flops take 0.278 ms at 989 TFLOP/s
-// against 0.05 ms for the 168 MB at 3.35 TB/s; [4096, 2048] @ [2048, 2048]
-// in f32 is 3.44e10 flops, 0.513 ms at the 67 TFLOP/s of non-tensor f32.
+// against 0.05 ms for the 168 MB at 3.35 TB/s. [4096, 2048] @ [2048, 2048]
+// in f32 is 3.44e10 flops: 0.513 ms at the 67 TFLOP/s of the FFMA cores,
+// or, as this kernel computes it (three TF32 products), 1.03e11 tensor
+// flops, 0.209 ms at 495 TFLOP/s.
 //
 // bf16 design: wgmma fed by TMA (the tensor cores' full rate is reached
 // only through wgmma).
@@ -28,9 +30,9 @@
 //    [M, K] K-major; A = h^T (the VJP's dB = A^T dY, h row-major [K, M])
 //    MN-major (trans-a); B row-major [K, N] MN-major (trans-b); B = w^T
 //    (the VJP's dA = dY B^T, w row-major [N, K]) K-major. TMA needs each
-//    leading dimension a multiple of 8 and a 16-byte base: the wrapper
-//    copies any operand that fails either (no model path gives one) into
-//    an aligned buffer first.
+//    leading dimension a multiple of 16 bytes (8 bf16) and a 16-byte
+//    base: the wrapper copies any operand that fails either (no model
+//    path gives one) into an aligned buffer first.
 //  - Epilogue. Each warpgroup stages its 64 x 256 of c in bf16 in the
 //    (by then idle) ring, 128B-swizzled so the stores meet no bank
 //    conflict, and one thread writes it out with four TMA stores: whole
@@ -46,26 +48,53 @@
 //    costs at most 3%. (A persistent block an SM walking every 132nd
 //    tile, its producer loading the next tile while the consumers store
 //    the last, ran slower at all four FFN products in a bring-up run.)
-// f32 design (SIMT FFMA): real f32 (tensor-core TF32 keeps about three
-// digits and would not match a full-precision product): 128 x 128 tiles
-// walking K through double-buffered shared memory in slices 16 deep, each
-// operand staged k-major as [16][128 + 4] by 4-byte cp.async (any
-// alignment, zero-filled outside the matrix), each thread an 8 x 8
-// micro-tile of accumulators, read from shared memory as float4s at rows
-// (and columns) 4t..4t+3 and 64+4t..64+4t+3. The epilogue masks the ragged
-// edges of c.
+// f32 design: 3xTF32 on wgmma, fed by TMA. TF32 keeps 10 mantissa bits
+// (about three digits), so each operand is split: v = hi + lo with hi =
+// tf32(v), lo = tf32(v - hi), both rounded to nearest (cvt.rna), and c
+// sums a_lo b_hi + a_hi b_lo + a_hi b_hi. What is dropped (a_lo b_lo and
+// lo's own rounding) is below 2^-20 of |a b|.
+//  - Sums. The tensor cores do not round their f32 sums to nearest: with
+//    every product added straight into c's accumulators the error grew
+//    with K past the 1e-5 of max|c| the kernel is held to (at K = 2048,
+//    and by an order of magnitude at K = 16384, in a bring-up build). So
+//    each k-step's twelve products go to a second set of accumulators,
+//    which an f32 add (rounded to nearest) folds into c's sums; that keeps
+//    f32's accuracy at K = 16384.
+//  - Tiles. A block owns a 128 x 128 tile of c; two consumer warpgroups
+//    each own 64 x 128 of it with wgmma m64n128k8 (64 f32 accumulators a
+//    thread, and 64 more for a k-step), and K is walked 32 deep: one
+//    128-byte row of f32.
+//  - Ring. One thread of a producer warpgroup keeps 3 stages of raw a and
+//    b tiles (32 KB a stage) in flight by TMA through full/empty
+//    mbarriers. The warpgroup hands its registers to the consumers
+//    (setmaxnreg: 40 against 232 a thread), which hold two sets of
+//    accumulators and the split; with a lone producer warp (nine warps,
+//    168 registers a thread at most) the split's registers spilled.
+//  - Split. TF32 wgmma reads K-major operands only (no transpose, unlike
+//    bf16). The consumers split each raw stage into two buffers of the
+//    four halves (64 KB each), K-major and 128B-swizzled, and release the
+//    raw stage: a K-major operand (a row-major, b = w^T) arrives in that
+//    layout and each element keeps its position; an MN-major one (b
+//    row-major, a = h^T) arrives as unswizzled [32 k][128] boxes and the
+//    split transposes it, all without bank conflicts. The split of k-step
+//    kt + 1 runs while the tensor cores work on kt; one named barrier a
+//    k-step hands the buffers over. 3 x 32 + 2 x 64 = 224 KB of shared
+//    memory: one block an SM.
+//  - Epilogue: f32 pairs stored straight from the accumulators, masked at
+//    c's ragged edges. Edges: TMA's out-of-bounds fill reads zeros, which
+//    split to zeros. K = 0 writes zeros. TMA needs each leading dimension
+//    a multiple of 4 and a 16-byte base: the wrapper copies any operand
+//    that fails either into an aligned buffer first, as for bf16.
 //
 // Plain C interface (loaded with ctypes): tiled_matmul returns the CUDA
 // error code of the launch (or a CUresult of the tensor-map encoder), 0
 // on success. It allocates nothing and launches on the stream it is given.
 
 #include "hopper.cuh"
-#include "mma_tiles.cuh"
 
 namespace {
 
 using namespace hopper;
-using namespace mma_tiles;
 
 using bf16 = __nv_bfloat16;
 
@@ -257,106 +286,198 @@ int launch_bf16(const void* a, const void* b, void* c, int M, int N, int K,
                                          tma_store));
 }
 
-// ---- f32 on the SIMT cores ------------------------------------------------
+// ---- f32: 3xTF32 on wgmma fed by TMA --------------------------------------
 
-constexpr int THREADS = 256;       // 8 warps
-constexpr int BM = 128, BN = 128;  // the c tile of a block
-constexpr int FBK = 16;
-constexpr int FPITCH = 128 + 4;  // 528-byte rows: float4-aligned
+constexpr int FBM = 128, FBN = 128, FBK = 32;  // c tile of a block, k-step
+constexpr int FRST = 3;                        // ring stages of raw tiles
+constexpr int FTILE = 128 * FBK * 4;           // one [128][32] f32 tile: 16 KB
+constexpr int FRAW = 2 * FTILE;                // a and b as TMA brings them
+constexpr int FSPLIT = 4 * FTILE;              // a_hi, a_lo, b_hi, b_lo
+constexpr size_t FSMEM = 1024 + FRST * FRAW + 2 * FSPLIT + 8 * 2 * FRST;
+constexpr int FTHREADS = HCONSUMERS + 128;  // + the producer warpgroup
+// Registers a thread, after setmaxnreg: 2 x 128 x 232 + 128 x 40 <= 64K.
+constexpr int FREGS_CONSUMER = 232, FREGS_PRODUCER = 40;
 
-// The [FBK k][128 x] slice (k0, x0) of an operand -> dst [FBK][FPITCH],
-// zero outside the matrix. KC: src is row-major [nx][K] (src[x * ld + k]);
-// else row-major [K][nx] (src[k * ld + x]). Neighbouring threads take
-// neighbouring addresses of src.
-template <bool KC>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* __restrict__ src,
-                                              int ld, int nx, int K, int x0, int k0,
-                                              int tid) {
+// v = hi + lo + (what is dropped, below 2^-22 |v|): hi = tf32(v), lo =
+// tf32(v - hi), both rounded to nearest, ties away (v - hi is exact).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// The raw [128 x][32 k] tile of an operand -> its TF32 halves, each K-major
+// [128][32] with the 128B swizzle (16-byte chunk c of row x at chunk
+// c ^ (x % 8)), as wgmma reads them. KM: the raw tile has that layout
+// already (TMA's swizzled box); else it is [32 k][128 x] unswizzled (an
+// MN-major operand) and the split transposes it. Consumer thread t takes
+// chunks t + 256 i; a warp's reads and writes meet no bank conflict.
+template <bool KM>
+__device__ __forceinline__ void split_tile(const unsigned char* raw, unsigned char* hi,
+                                           unsigned char* lo, int t) {
 #pragma unroll
-  for (int i = 0; i < FBK * 128 / THREADS; ++i) {
-    const int e = tid + i * THREADS;
-    const int x = KC ? e / FBK : e % 128;
-    const int k = KC ? e % FBK : e / 128;
-    const bool ok = x0 + x < nx && k0 + k < K;
-    const float* p = KC ? src + static_cast<size_t>(x0 + x) * ld + k0 + k
-                        : src + static_cast<size_t>(k0 + k) * ld + x0 + x;
-    cp_async4(dst + k * FPITCH + x, ok ? p : src, ok);
+  for (int i = 0; i < 4; ++i) {
+    const int q = t + HCONSUMERS * i;
+    const int x = KM ? q / 8 : q % 128, c = KM ? q % 8 : q / 128;
+    const int off = x * 128 + ((c ^ (x % 8)) << 4);
+    float v[4];
+    if (KM) {
+      const float4 w = *reinterpret_cast<const float4*>(raw + off);
+      v[0] = w.x, v[1] = w.y, v[2] = w.z, v[3] = w.w;
+    } else {
+      const float* r = reinterpret_cast<const float*>(raw) + 4 * c * 128 + x;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = r[128 * j];
+    }
+    uint4 h, l;
+    split_tf32(v[0], h.x, l.x);
+    split_tf32(v[1], h.y, l.y);
+    split_tf32(v[2], h.z, l.z);
+    split_tf32(v[3], h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + off) = h;
+    *reinterpret_cast<uint4*>(lo + off) = l;
   }
 }
 
-// One block an SM: 64 accumulators, 16 fragment values and the loaders'
-// addresses do not fit the 128 registers two blocks would leave a thread.
-template <bool A_KC, bool B_KC>
-__global__ void __launch_bounds__(THREADS, 1)
-matmul_f32_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                  float* __restrict__ c, int M, int N, int K, int lda, int ldb) {
-  __shared__ __align__(16) float as[2][FBK][FPITCH];
-  __shared__ __align__(16) float bs[2][FBK][FPITCH];
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+// A_KM: a row-major [M][K], else a = h^T with h row-major [K][M]. B_KM:
+// b = w^T with w row-major [N][K], else b row-major [K][N].
+template <bool A_KM, bool B_KM>
+__global__ void __launch_bounds__(FTHREADS, 1)
+matmul_f32_kernel(const __grid_constant__ CUtensorMap ta,
+                  const __grid_constant__ CUtensorMap tb, float* __restrict__ c,
+                  int M, int N, int K) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* halves = smem + FRST * FRAW;
+  uint64_t* full = reinterpret_cast<uint64_t*>(halves + 2 * FSPLIT);
+  uint64_t* empty = full + FRST;
+
+  const int t = threadIdx.x;
   int mt, nt;
-  tile_of<BM, BN>(blockIdx.x, M, N, mt, nt);
-  const int m0 = mt * BM, n0 = nt * BN;
-
-  auto load_stage = [&](int s, int k0) {
-    load_tile_f32<A_KC>(&as[s][0][0], a, lda, M, K, m0, k0, tid);
-    load_tile_f32<B_KC>(&bs[s][0][0], b, ldb, N, K, n0, k0, tid);
-  };
-
-  // acc[i][j]: c row m0 + 64 (i / 4) + 4 ty + i % 4, column
-  // n0 + 64 (j / 4) + 4 tx + j % 4.
-  float acc[8][8] = {};
+  tile_of<FBM, FBN>(blockIdx.x, M, N, mt, nt);
+  const int m0 = mt * FBM, n0 = nt * FBN;
   const int nk = (K + FBK - 1) / FBK;
-  if (nk > 0) load_stage(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait_all();
-    __syncthreads();
-    if (kt + 1 < nk) load_stage((kt + 1) & 1, (kt + 1) * FBK);
-    cp_async_commit();
-    const int s = kt & 1;
-#pragma unroll
-    for (int kk = 0; kk < FBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&as[s][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&as[s][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&bs[s][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&bs[s][kk][64 + tx * 4]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+
+  if (t == 0) {
+    for (int s = 0; s < FRST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], HCONSUMERS);
     }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (t >= HCONSUMERS) {
+    // Producer warpgroup: one thread issues every copy; the others only
+    // hand their registers to the consumers.
+    setmaxnreg_dec<FREGS_PRODUCER>();
+    if (t == HCONSUMERS) {
+      prefetch_map(&ta);
+      prefetch_map(&tb);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int st = kt % FRST, round = kt / FRST;
+        if (round > 0) mbar_wait(&empty[st], (round - 1) & 1);
+        mbar_expect_tx(&full[st], FRAW);
+        unsigned char* as = smem + st * FRAW;
+        const int k0 = kt * FBK;
+        if (A_KM) tma_load_2d(as, &ta, &full[st], k0, m0);
+        else tma_load_2d(as, &ta, &full[st], m0, k0);
+        if (B_KM) tma_load_2d(as + FTILE, &tb, &full[st], k0, n0);
+        else tma_load_2d(as + FTILE, &tb, &full[st], n0, k0);
+      }
+    }
+    return;
   }
 
-  const bool quads = N % 4 == 0;  // then a 4-column group is 16-byte aligned
+  setmaxnreg_inc<FREGS_CONSUMER>();
+  // k-step kt's raw tiles -> split buffer kt % 2; the raw stage is then free.
+  auto split_step = [&](int kt) {
+    const int st = kt % FRST;
+    mbar_wait(&full[st], (kt / FRST) & 1);
+    const unsigned char* raw = smem + st * FRAW;
+    unsigned char* sp = halves + (kt % 2) * FSPLIT;
+    split_tile<A_KM>(raw, sp, sp + FTILE, t);
+    split_tile<B_KM>(raw + FTILE, sp + 2 * FTILE, sp + 3 * FTILE, t);
+    mbar_arrive(&empty[st]);
+    fence_async_smem();  // the halves, visible to wgmma
+  };
+
+  // Consumer warpgroup g owns rows 64 g .. 64 g + 63 of the tile. The
+  // tensor cores sum a k-step's twelve products in part; acc, c's sums,
+  // takes part with an f32 add, rounded to nearest, each k-step.
+  const int g = t / 128, warp = (t % 128) / 32, lane = t % 32;
+  float acc[64], part[64];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i / 4) * 64 + ty * 4 + i % 4;
-    if (row >= M) continue;
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  split_step(0);
+  named_sync(1, HCONSUMERS);
+  for (int kt = 0; kt < nk; ++kt) {
+    const uint32_t a_hi = smem_u32(halves + (kt % 2) * FSPLIT) + g * (FTILE / 2);
+    const uint32_t a_lo = a_hi + FTILE;
+    const uint32_t b_hi = smem_u32(halves + (kt % 2) * FSPLIT) + 2 * FTILE;
+    const uint32_t b_lo = b_hi + FTILE;
+    wgmma_fence();
+    // The small products first, then hi·hi.
+#pragma unroll
+    for (int kk = 0; kk < FBK / 8; ++kk) {
+      WgmmaTf32<128>::ss(part, desc_kmajor(a_lo + kk * 32), desc_kmajor(b_hi + kk * 32),
+                         kk > 0);
+      WgmmaTf32<128>::ss(part, desc_kmajor(a_hi + kk * 32), desc_kmajor(b_lo + kk * 32), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < FBK / 8; ++kk)
+      WgmmaTf32<128>::ss(part, desc_kmajor(a_hi + kk * 32), desc_kmajor(b_hi + kk * 32), 1);
+    wgmma_commit();
+    // The next k-step's split runs while the tensor cores work on this one.
+    if (kt + 1 < nk) split_step(kt + 1);
+    wgmma_wait<0>();
+    fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    // Both warpgroups: the next halves written, this step's halves read.
+    named_sync(1, HCONSUMERS);
+  }
+
+  // acc[4j + {0, 1}]: row 16 warp + lane / 4 of the warpgroup's 64,
+  // columns n0 + 8j + 2(lane % 4) + {0, 1}; acc[4j + {2, 3}]: 8 rows below.
+  const int r = m0 + 64 * g + 16 * warp + lane / 4;
+  const bool pairs = N % 2 == 0;  // then (row * N + col) is even: 8-byte aligned
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const int col = n0 + 8 * j + 2 * (lane % 4);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int col = n0 + h * 64 + tx * 4;
+      const int row = r + 8 * h;
+      if (row >= M || col >= N) continue;
       float* p = c + static_cast<size_t>(row) * N + col;
-      if (quads && col < N) {
-        *reinterpret_cast<float4*>(p) = make_float4(acc[i][h * 4], acc[i][h * 4 + 1],
-                                                    acc[i][h * 4 + 2], acc[i][h * 4 + 3]);
+      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if (pairs) {
+        *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
       } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (col + e < N) p[e] = acc[i][h * 4 + e];
+        p[0] = v0;
+        if (col + 1 < N) p[1] = v1;
       }
     }
   }
 }
 
-template <bool A_KC, bool B_KC>
+template <bool A_KM, bool B_KM>
 int launch_f32(const void* a, const void* b, void* c, int M, int N, int K,
-               int lda, int ldb, int grid, cudaStream_t s) {
-  matmul_f32_kernel<A_KC, B_KC><<<grid, THREADS, 0, s>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b),
-      static_cast<float*>(c), M, N, K, lda, ldb);
-  return static_cast<int>(cudaGetLastError());
+               int lda, int ldb, cudaStream_t s) {
+  // K-major operands in swizzled [128][32] boxes, MN-major ones in
+  // unswizzled [32 k][128] boxes.
+  CUtensorMap ta, tb;
+  int err = A_KM ? encode_map(&ta, a, M, K, FBM, FBK, lda, 4, true)
+                 : encode_map(&ta, a, K, M, FBK, FBM, lda, 4, false);
+  if (!err)
+    err = B_KM ? encode_map(&tb, b, N, K, FBN, FBK, ldb, 4, true)
+               : encode_map(&tb, b, K, N, FBK, FBN, ldb, 4, false);
+  if (err) return err;
+  const int grid = ((M + FBM - 1) / FBM) * ((N + FBN - 1) / FBN);
+  return static_cast<int>(launch_cluster(matmul_f32_kernel<A_KM, B_KM>, dim3(grid),
+                                         FTHREADS, FSMEM, 1, s, ta, tb,
+                                         static_cast<float*>(c), M, N, K));
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -365,32 +486,31 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 
 // c [M, N] row-major = a [M, K] @ b [K, N]. a_t = 0: a row-major with
 // leading dimension lda (a[m * lda + k]); a_t = 1: a[k * lda + m]. b_t = 0:
-// b[k * ldb + n]; b_t = 1: b[n * ldb + k]. dtype: 0 float32, 1 bfloat16
-// (then lda and ldb multiples of 8, a and b 16-byte aligned). K may be 0
-// (c is zeroed).
+// b[k * ldb + n]; b_t = 1: b[n * ldb + k]. dtype: 0 float32, 1 bfloat16.
+// lda and ldb span a multiple of 16 bytes, a and b are 16-byte aligned.
+// K may be 0 (c is zeroed).
 extern "C" int tiled_matmul(const void* a, const void* b, void* c, int M, int N,
                             int K, int lda, int ldb, int a_t, int b_t, int dtype,
                             void* stream) {
   if (M <= 0 || N <= 0 || K < 0 || lda <= 0 || ldb <= 0 || dtype < 0 || dtype > 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int elem = dtype == 1 ? 2 : 4, vec = 16 / elem;
+  if (lda % vec || ldb % vec || !aligned16(a) || !aligned16(b))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (K == 0)
+    return static_cast<int>(cudaMemsetAsync(c, 0, static_cast<size_t>(M) * N * elem, s));
   const bool a_km = !a_t, b_km = b_t != 0;
   if (dtype == 1) {
-    if (lda % 8 || ldb % 8 || !aligned16(a) || !aligned16(b))
-      return static_cast<int>(cudaErrorInvalidValue);
-    if (K == 0)
-      return static_cast<int>(cudaMemsetAsync(
-          c, 0, static_cast<size_t>(M) * N * sizeof(bf16), s));
     if (a_km)
       return b_km ? launch_bf16<true, true>(a, b, c, M, N, K, lda, ldb, s)
                   : launch_bf16<true, false>(a, b, c, M, N, K, lda, ldb, s);
     return b_km ? launch_bf16<false, true>(a, b, c, M, N, K, lda, ldb, s)
                 : launch_bf16<false, false>(a, b, c, M, N, K, lda, ldb, s);
   }
-  const int grid = ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   if (a_km)
-    return b_km ? launch_f32<true, true>(a, b, c, M, N, K, lda, ldb, grid, s)
-                : launch_f32<true, false>(a, b, c, M, N, K, lda, ldb, grid, s);
-  return b_km ? launch_f32<false, true>(a, b, c, M, N, K, lda, ldb, grid, s)
-              : launch_f32<false, false>(a, b, c, M, N, K, lda, ldb, grid, s);
+    return b_km ? launch_f32<true, true>(a, b, c, M, N, K, lda, ldb, s)
+                : launch_f32<true, false>(a, b, c, M, N, K, lda, ldb, s);
+  return b_km ? launch_f32<false, true>(a, b, c, M, N, K, lda, ldb, s)
+              : launch_f32<false, false>(a, b, c, M, N, K, lda, ldb, s);
 }

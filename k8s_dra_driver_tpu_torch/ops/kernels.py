@@ -10,7 +10,8 @@ either), and ``TiledMatmul``'s backward runs dA = dY·Bᵀ and dB = Aᵀ·dY
 through the same forward kernel, each only when its input needs a grad.
 
 On CUDA tensors the forwards launch ``csrc/rmsnorm.cu`` and
-``csrc/tiled_matmul.cu`` (f32 or bf16), or raise; on CPU tensors they run
+``csrc/tiled_matmul.cu`` (bf16 on wgmma; f32 as three TF32 products on
+wgmma, f32-accurate), or raise; on CPU tensors they run
 the plain PyTorch versions ``rmsnorm_plain`` and ``tiled_matmul_plain``.
 The reference's ``block_rows``, ``bm`` and ``bn`` are TPU grid sizes that
 never change the result: they are checked and otherwise unused, and the
@@ -175,25 +176,24 @@ def tiled_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.to(acc) @ b.to(acc)).to(a.dtype)
 
 
-# The bf16 kernel reads its operands through TMA, which needs a leading
-# dimension that is a multiple of 8 elements (16 bytes) and a 16-byte base.
-TMA_LD, TMA_ALIGN = 8, 16
+# The kernel reads its operands through TMA, which needs a 16-byte base and
+# a leading dimension that spans a multiple of 16 bytes: 8 bf16, 4 f32.
+TMA_ALIGN = 16
 
 
 def _operand(t: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
     """(tensor, transposed flag, leading dimension) of a 2-D operand as the
     kernel reads it. In place when it is row-major (flag 0) or the
     transpose of a row-major matrix (flag 1), as ``b.T`` and ``a.T`` in the
-    VJP are, and, in bf16, its leading dimension is a multiple of
-    ``TMA_LD`` on a ``TMA_ALIGN``-byte base. Otherwise a row-major copy: in
-    f32 ``.contiguous()``; in bf16 a fresh buffer whose leading dimension
-    is rounded up to a multiple of ``TMA_LD`` (the columns past the matrix
-    are never read)."""
+    VJP are, its leading dimension spans a multiple of ``TMA_ALIGN`` bytes
+    and its base is ``TMA_ALIGN``-byte aligned. Otherwise a row-major copy
+    in a fresh buffer whose leading dimension is rounded up to that rule
+    (the columns past the matrix are never read)."""
     r, c = t.shape
-    tma = t.dtype == torch.bfloat16
+    step = TMA_ALIGN // t.element_size()
 
     def fits(ld: int) -> bool:
-        return not tma or (ld % TMA_LD == 0 and t.data_ptr() % TMA_ALIGN == 0)
+        return ld % step == 0 and t.data_ptr() % TMA_ALIGN == 0
 
     if t.stride(1) == 1 and (r == 1 or t.stride(0) >= c):
         ld = t.stride(0) if r > 1 else max(c, 1)
@@ -203,9 +203,7 @@ def _operand(t: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
         ld = t.stride(1) if c > 1 else max(r, 1)
         if fits(ld):
             return t, 1, ld
-    if not tma:
-        return t.contiguous(), 0, max(c, 1)
-    ld = -(-max(c, 1) // TMA_LD) * TMA_LD
+    ld = -(-max(c, 1) // step) * step
     buf = torch.empty((r, ld), dtype=t.dtype, device=t.device)
     buf[:, :c] = t
     return buf, 0, ld

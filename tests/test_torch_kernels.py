@@ -189,11 +189,16 @@ def test_tiled_matmul_empty_shapes(m, k, n):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_tiled_matmul_grads_match_jax():
-    """Grads of sum(sin(a @ b)) at (64, 32) @ (32, 48) in f32, as the
-    reference's own test: both VJP products against jax.grad through the
-    JAX custom VJP."""
-    a, b = _np((64, 32), 17), _np((32, 48), 18)
+# (64, 32) @ (32, 48): the reference's own test; (131, 67) @ (67, 259):
+# ragged against every tile of the CUDA kernels (128 x 128 and 32 deep in
+# f32), so the VJP's two transposed orientations meet an edge too. Its
+# operands are scaled by 0.1 so that the grads, sums of 131 and 259 terms,
+# stay of the reference case's size, where GRAD_TOL's atol applies.
+@pytest.mark.parametrize("m,k,n,scale", [(64, 32, 48, 1.0), (131, 67, 259, 0.1)])
+def test_tiled_matmul_grads_match_jax(m, k, n, scale):
+    """Grads of sum(sin(a @ b)) in f32: both VJP products against jax.grad
+    through the JAX custom VJP."""
+    a, b = _np((m, k), 17, scale=scale), _np((k, n), 18, scale=scale)
     want = jax.grad(lambda a, b: jnp.sum(jnp.sin(jax_k.tiled_matmul(a, b, interpret=True))),
                     argnums=(0, 1))(jnp.asarray(a), jnp.asarray(b))
     ta = torch.from_numpy(a).requires_grad_()
@@ -256,13 +261,103 @@ def test_bf16_operands_follow_the_tma_layout_rule(make, flag, ld, in_place):
     got, f, l = torch_k._operand(t)
     assert (f, l) == (flag, ld)
     assert (got.data_ptr() == t.data_ptr()) == in_place
-    assert l % torch_k.TMA_LD == 0 and got.data_ptr() % torch_k.TMA_ALIGN == 0
+    assert l * 2 % torch_k.TMA_ALIGN == 0 and got.data_ptr() % torch_k.TMA_ALIGN == 0
     r, c = t.shape
     if f:
         assert got.stride() == (1, l) and torch.equal(got, t)
     else:
         assert got.stride(1) == 1 and (r == 1 or got.stride(0) == l)
         assert torch.equal(got[:, :c], t)
+
+
+def _f32(rows, cols, seed=29):
+    return torch.from_numpy(_np((rows, cols), seed))
+
+
+@pytest.mark.parametrize("make,flag,ld,in_place", [
+    (lambda: _f32(32, 48), 0, 48, True),
+    (lambda: _f32(48, 32).T, 1, 32, True),
+    (lambda: _f32(8, 12), 0, 12, True),
+    (lambda: _f32(32, 64)[:, :40], 0, 64, True),
+    (lambda: _f32(32, 64)[:, 4:], 0, 64, True),
+    (lambda: _f32(32, 64)[4:].T, 1, 64, True),
+    (lambda: _f32(13, 7), 0, 8, False),
+    (lambda: _f32(16, 6), 0, 8, False),
+    (lambda: _f32(1, 6), 0, 8, False),
+    (lambda: _f32(30, 9).T, 0, 32, False),
+    (lambda: _f32(32, 52)[:, 1:], 0, 52, False),
+    (lambda: _f32(32, 49)[:, 1:], 0, 48, False),
+    (lambda: _f32(32, 48)[:, ::2], 0, 24, False),
+], ids=["row_major", "transposed", "ld12", "row_major_ld64", "offset_16_bytes",
+        "transposed_offset", "odd_ld", "ld6", "one_row_ld6", "transposed_odd_ld",
+        "offset_4_bytes", "offset_and_odd_ld", "strided"])
+def test_f32_operands_follow_the_tma_layout_rule(make, flag, ld, in_place):
+    """The f32 kernel reads its operands through TMA too: row-major and
+    transposed operands whose leading dimension is a multiple of 4 (16
+    bytes), on a 16-byte base, are read in place with the right flag and
+    leading dimension; a leading dimension off that rule, a storage offset
+    off 16 bytes or other strides get a row-major copy, on a 16-byte base,
+    with the leading dimension rounded up to a multiple of 4 and equal
+    values."""
+    t = make()
+    got, f, l = torch_k._operand(t)
+    assert (f, l) == (flag, ld)
+    assert (got.data_ptr() == t.data_ptr()) == in_place
+    assert l % 4 == 0 and got.data_ptr() % torch_k.TMA_ALIGN == 0
+    r, c = t.shape
+    if f:
+        assert got.stride() == (1, l) and torch.equal(got, t)
+    else:
+        assert got.stride(1) == 1 and (r == 1 or got.stride(0) == l)
+        assert torch.equal(got[:, :c], t)
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """f32 x rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to 10
+    mantissa bits, to nearest with ties away from zero (half of the
+    dropped 13 bits' range added to the magnitude, then cut)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The f32 CUDA kernel's arithmetic in torch: each operand split into
+    hi = tf32(v) and lo = tf32(v - hi), and a_lo·b_hi + a_hi·b_lo + a_hi·b_hi
+    summed in f32 (each product of two TF32 values is exact in f32)."""
+    a_hi, b_hi = _tf32_rna(a), _tf32_rna(b)
+    a_lo, b_lo = _tf32_rna(a - a_hi), _tf32_rna(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10  # the TF32 neighbour above 1
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -11 - 2.0 ** -23,
+                      -(1.0 + 2.0 ** -11), 1.0 + 3 * 2.0 ** -11, 3.0, 0.0])
+    want = torch.tensor([one, 1.0, -one, 1.0 + 2 * 2.0 ** -10, 3.0, 0.0])
+    assert torch.equal(_tf32_rna(x), want)
+
+
+# chip_smoke.py's f32 cases with M and N cut (K kept, since the error grows
+# with K): the bench product [4096, 2048] @ [2048, 2048] (b scaled 0.02),
+# the ragged 1000x999x1001 case, the long sum [512, 16384] @ [16384, 512],
+# and ones.
+@pytest.mark.parametrize("m,k,n,b_scale", [
+    (256, 2048, 128, 0.02), (100, 999, 101, 1.0), (64, 16384, 64, 1.0), (13, 7, 9, 0.0)],
+    ids=["bench_f32", "ragged", "long_k", "ones"])
+def test_3xtf32_split_keeps_f32_accuracy(m, k, n, b_scale):
+    """The split's numerics, emulated on the CPU, within the 1e-5 of
+    max|plain| that chip_smoke.py holds the kernel to; TF32 alone (one
+    product of the rounded operands) misses it at every random case."""
+    if b_scale:
+        a = torch.from_numpy(_np((m, k), 30))
+        b = torch.from_numpy(_np((k, n), 31, scale=b_scale))
+    else:
+        a, b = torch.ones(m, k), torch.ones(k, n)
+    plain = torch_k.tiled_matmul_plain(a, b)
+    scale = float(plain.abs().max())
+    err = float((_matmul_3xtf32(a, b) - plain).abs().max()) / scale
+    assert err <= 1e-5, err
+    tf32_err = float((_tf32_rna(a) @ _tf32_rna(b) - plain).abs().max()) / scale
+    assert (tf32_err > 1e-5) == bool(b_scale), tf32_err
 
 
 # -- the slice as a whole ----------------------------------------------------
