@@ -13,12 +13,23 @@ Phases, each fatal on failure:
  2. kernels: hold each kernel to its plain PyTorch version (and the
     materializing reference) on the card at the shapes the main paths give
     it, and time kernel, plain version, one library call and the bound.
-    fused_ce_fwd at T=4096, D=2048, V=8192, V=1000, labels -1 and V=1001.
-    fused_ce_dx and fused_ce_dw at the fused objective's shape (T=4096:
-    4*1023 tokens padded, the last 4 rows labelled -1 with g=0, g=1/4092
-    elsewhere), at V=1000 and at V=1001 with T=512 (the element-wise
-    loader), each against fused_ce_dx_plain / fused_ce_dw_plain and
-    against torch.autograd.grad of the materializing reference.
+    fused_ce_fwd at T=4096, D=2048, V=8192, V=1000, labels -1 and V=1001;
+    its library call on the bf16 operands and, labelled f32, on f32 copies.
+    The fused-CE backward at the fused objective's shape (T=4096: 4*1023
+    tokens padded, the last 4 rows labelled -1 with g=0, g=1/4092
+    elsewhere): its vocab chunks printed; fused_ce_p, fused_ce_dx and
+    fused_ce_dw launched one by one in the wrapper's own plan
+    (fused_ce._bwd_launches), each held to its plain version on the same
+    inputs and timed summed over the chunks beside one library call of its
+    function over the whole vocab; the whole backward held to
+    fused_ce_dx_plain / fused_ce_dw_plain and to torch.autograd.grad of
+    the materializing reference, and timed (also with its launches queued
+    behind a sleeping kernel: no host time) beside the bound, the plain
+    versions and the library's autograd of both grads on the bf16 operands
+    and on f32 copies; the same, timed, at vocab 32000 (eight chunks, the
+    last ragged); untimed, dx only, dw only, V=1000, V=1001 at T=512 (w's
+    aligned copy), d_model 4096, 2000 and 1001 (x's aligned copy). The
+    ptxas report of the three (a spill is fatal).
     flash_fwd, flash_dq and flash_dkv at [batch, heads, seq, head_dim] =
     [4, 2, 1024, 1024] (the bench attention), [1, 16, 8192, 128] and
     [2, 4, 256, 64], each against its plain version on the same saved row
@@ -36,8 +47,9 @@ Phases, each fatal on failure:
     and no backward kernel. The NLL is checked against the materializing
     loss_fn, and a tiny() model against itself on the CPU;
  4. fused objective: torch.autograd.grad(evaluate_nll, params) at bench
-    width, batch 4x1024: exactly one fused_ce_fwd, fused_ce_dx and
-    fused_ce_dw a call; the grads held leaf by leaf to those of loss_fn;
+    width, batch 4x1024: exactly one fused_ce_fwd a call and one
+    fused_ce_p, fused_ce_dx and fused_ce_dw a vocab chunk of the
+    backward's plan; the grads held leaf by leaf to those of loss_fn;
  5. flash scoring: the same weights and batches with attention="flash":
     exactly one flash_fwd a layer and one fused_ce_fwd a batch, no
     backward kernel; the NLL held to the einsum model's;
@@ -80,8 +92,8 @@ Tolerances, with their reasons, stand beside their constants below.
 The last three lines of standard output are the kernels' JSON record, the
 nvidia-smi line and ``{"ok": true, "device": {...}}``. ``--profile DIR``
 also traces one scoring batch and one training step, each with einsum and
-with flash attention, with torch.profiler and writes the tables of device
-time by kernel to DIR.
+with flash attention, and one grad(evaluate_nll) call, with torch.profiler
+and writes the tables of device time by kernel to DIR.
 """
 
 from __future__ import annotations
@@ -112,12 +124,30 @@ KERNEL_ATOL, KERNEL_RTOL = 1e-3, 1e-4
 # tolerance (bench.py, check_fused_ce_numerics); the logits of loss_fn are
 # rounded to bf16, the kernel's are not.
 NLL_RTOL = 2e-2
-# Backward kernels vs their plain versions and the materializing reference,
+# The whole backward vs its plain versions and the materializing reference,
 # as max|err| / max|plain| per output tensor: the kernels round p to bf16
-# for the second tensor-core product (2**-9 relative a term, f32 sums) and
-# write bf16 (2**-9 relative); the plain versions keep f32 p, as the
-# reference does.
+# before both products (2**-9 relative a term, f32 sums) and write bf16
+# (2**-9 relative); the plain versions keep f32 p, as the reference does.
 BWD_REL_TOL = 1e-2
+# Each backward kernel vs its plain version on the same inputs, max|err| /
+# max|plain|: both form the same exact products and sum them in f32 in
+# another order; the kernel rounds its output (p, dx or dw) to bf16 once,
+# one step of bf16 (2**-7 relative) at most.
+BWD_KERNEL_REL_TOL = 2 ** -7
+BWD_KERNELS = ("fused_ce_p", "fused_ce_dx", "fused_ce_dw")
+# A large vocab, timed like the bench shape: T=4096, d_model 2048, vocab
+# 32000 (Llama 2's), eight chunks at the wrapper's budget (seven of 4096
+# columns and 3328: dx's f32 sum stored, added into, and added and
+# written), every fifth row labelled -1.
+BWD_LARGE_VOCAB = (4096, 2048, 32000)
+# Untimed backward cases, (T, D, V), every fifth row labelled -1: one
+# ragged chunk; w's aligned copy (V % 8 != 0) and dw's masked stores;
+# d_model 4096 (no cap); d_model 2000 (ragged K of the p kernel, ragged N
+# of dx, ragged M of dw); x's aligned copy (D % 8 != 0) and dx's masked
+# stores.
+BWD_CASES = {"vocab_1000": (4096, 2048, 1000), "vocab_1001": (512, 2048, 1001),
+             "d_model_4096": (4096, 4096, 8192), "d_model_2000": (4096, 2000, 8192),
+             "d_model_1001": (512, 1001, 1000)}
 # Grads of evaluate_nll vs grads of loss_fn, per leaf, normalized by
 # max|loss_fn leaf|: the repo's bf16 tolerance (test_models_flagship.py's
 # remat test). loss_fn's logits and their grads are bf16, the kernels'
@@ -278,8 +308,13 @@ def check_kernel_case(name, x, w, labels, timed: bool):
     if timed:
         row["ms"] = time_ms(lambda: fused_ce_losses(x, w, labels), 20)
         row["plain_ms"] = time_ms(lambda: fused_ce_losses_plain(x, w, labels), 5)
+        # One PyTorch call on the kernel's bf16 operands (the logits'
+        # product in bf16, cross-entropy in f32), and on f32 copies of them
+        # (true f32 products).
         row["library_ms"] = time_ms(lambda: F.cross_entropy(
-            x.float() @ w.float(), labels, reduction="none"), 5)
+            (x @ w).float(), labels, reduction="none", ignore_index=-1), 5)
+        row["library_f32_ms"] = time_ms(lambda: F.cross_entropy(
+            x.float() @ w.float(), labels, reduction="none", ignore_index=-1), 5)
     print(f"kernel fused_ce_fwd {json.dumps(row)}")
     return row
 
@@ -293,78 +328,199 @@ def bound_ms(T: int, D: int, V: int):
 
 
 def bwd_bound_ms(T: int, D: int, V: int, kernel: str):
-    flops = 4.0 * T * D * V  # the logits recomputed, then the second product
-    # x and w in bf16, labels/lse/g (4 bytes each) read once; dx [T, D] or
-    # dw [D, V] bf16 written once.
-    out = T * D if kernel == "fused_ce_dx" else D * V
-    nbytes = 2.0 * (T * D + D * V) + 12.0 * T + 2.0 * out
+    """Least time for one backward kernel summed over a backward's chunks,
+    or for the whole backward ("fused_ce_bwd"): its operations at the bf16
+    peak (2*T*D*V a product, three products in all) against the bytes it
+    must move, each input read and each output written once (p, the
+    scratch between the kernels, counts as an output of fused_ce_p and an
+    input of the products; the whole backward reads x, w and the [T]
+    vectors and writes dx and dw)."""
+    # bf16 [T, D] (x, dx), [D, V] (w, dw) and [T, V] (p); labels, lse, g.
+    td, dv, tv, rows = 2.0 * T * D, 2.0 * D * V, 2.0 * T * V, 12.0 * T
+    nbytes = {"fused_ce_p": td + dv + rows + tv,
+              "fused_ce_dx": tv + dv + td,
+              "fused_ce_dw": td + tv + dv,
+              "fused_ce_bwd": 2 * (td + dv) + rows}[kernel]
+    flops = 2.0 * T * D * V * (3 if kernel == "fused_ce_bwd" else 1)
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def check_bwd_case(name, x, w, labels, g, timed: bool):
-    """dx and dw kernels vs their plain versions and vs torch.autograd.grad
-    of the materializing reference. Returns, by kernel, the max abs error
-    against the plain version and, when ``timed``, the kernel's and plain
-    version's ms and the library call's (both grads together)."""
+def rel_err(got, want) -> float:
+    """max|got - want| / max|want| in f32; inf where got is not finite."""
+    import torch
+
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        return float("inf")
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def bwd_library_calls(x, w, labels, g):
+    """One PyTorch call for both grads, timed: autograd of the
+    materializing loss to x and w, the graph kept between runs, on the bf16
+    operands the kernels take (the logits' product in bf16, cross-entropy
+    in f32) and on f32 copies of them (true f32 products)."""
     import torch
     import torch.nn.functional as F
 
-    from k8s_dra_driver_tpu_torch.ops.fused_ce import (
-        KERNEL_DW,
-        KERNEL_DX,
-        _launch_bwd,
-        fused_ce_dw_plain,
-        fused_ce_dx_plain,
-        reference_ce_losses,
-    )
+    out = {}
+    for tag, cast in (("bf16", lambda t: t), ("f32", lambda t: t.float())):
+        xl = x.detach().requires_grad_()
+        wl = w.detach().requires_grad_()
+        loss = F.cross_entropy((cast(xl) @ cast(wl)).float(), labels, reduction="none",
+                               ignore_index=-1)
+        out[tag] = time_ms(lambda: torch.autograd.grad(loss, (xl, wl), g,
+                                                       retain_graph=True), 5)
+        del loss, xl, wl
+    return out
 
+
+def bwd_kernel_library_calls(x, w, labels, lse, g, p):
+    """One PyTorch call for each backward kernel's function over the whole
+    vocab (the kernel's launches summed over the chunks), timed, on the
+    same bf16 operands: for fused_ce_p the logits' product in bf16 and p
+    formed from it in f32, written bf16; for fused_ce_dx torch.matmul(p,
+    w^T) and for fused_ce_dw torch.matmul(x^T, p), on the p [T, V] bf16
+    the p kernel wrote. Returns {kernel: ms}."""
+    import torch
+
+    real = torch.nonzero(labels >= 0)[:, 0]
+    lab = labels[real]
+
+    def p_call():
+        q = torch.exp((x @ w).float() - lse[:, None])
+        q[real, lab] -= 1.0
+        return (q * g[:, None]).to(torch.bfloat16)
+
+    return {"fused_ce_p": time_ms(p_call, 5),
+            "fused_ce_dx": time_ms(lambda: torch.matmul(p, w.T), 10),
+            "fused_ce_dw": time_ms(lambda: torch.matmul(x.T, p), 10)}
+
+
+def check_bwd_case(name, x, w, labels, g, timed: bool, need=("dx", "dw")):
+    """The chunked backward on the card. fused_ce_p, fused_ce_dx and
+    fused_ce_dw launched one by one as ``fused_ce._bwd_launches`` plans
+    them, each held to its plain version on the same inputs (the products
+    on the p chunks the p kernel wrote); then the whole backward
+    (``_launch_bwd``, the grads in ``need``) held to fused_ce_dx_plain /
+    fused_ce_dw_plain and to torch.autograd.grad of the materializing
+    reference. When ``timed``: each kernel's, its plain version's and its
+    library call's ms over a backward's chunks, the whole backward's, the
+    plain whole backward's, both library calls' of the whole backward, and
+    the bounds. Returns {kernel: row} for the three kernels and
+    "fused_ce_bwd"."""
+    import torch
+
+    from k8s_dra_driver_tpu_torch.ops import fused_ce as fc
+
+    T, D = x.shape
+    V = w.shape[1]
     lse = torch.logsumexp(x.float() @ w.float(), dim=1)
     # g is 0 on the rows labelled -1, so any class stands in for them.
     xr = x.float().requires_grad_()
     wr = w.float().requires_grad_()
-    ref = torch.autograd.grad(reference_ce_losses(xr, wr, labels.clamp(min=0)),
+    ref = torch.autograd.grad(fc.reference_ce_losses(xr, wr, labels.clamp(min=0)),
                               (xr, wr), g)
-    row = {"case": name, "T": x.shape[0], "D": x.shape[1], "V": w.shape[1]}
+    del xr, wr
+    chunks = fc._bwd_chunks(T, V)
+    print(f"fused_ce backward {name}: T {T}, D {D}, V {V}, chunks (v0, width) {chunks}")
+    row = {"case": name, "T": T, "D": D, "V": V, "chunks": len(chunks)}
     out = {}
-    for kernel, plain_fn, want in ((KERNEL_DX, fused_ce_dx_plain, ref[0]),
-                                   (KERNEL_DW, fused_ce_dw_plain, ref[1])):
-        got = _launch_bwd(kernel, x, w, labels, lse, g)
+
+    def held(kernel, got, want, tol):
+        rel = rel_err(got, want)
+        err = float((got.float() - want.float()).abs().max())
+        if got.shape != want.shape or rel > tol:
+            fail(f"{kernel} {name}: {tuple(got.shape)} (want {tuple(want.shape)}), "
+                 f"error {rel:.3e} of max|value| (tolerance {tol})")
+        return err, rel
+
+    if need == ("dx", "dw"):
+        # Kernel by kernel in the wrapper's plan, each chunk's p kept as
+        # the products read it (the next chunk's p overwrites the scratch).
+        dx, dw, p, launches = fc._bwd_launches(x, w, labels, lse, g)
+        ps = []
+        for kernel, v0, width, launch in launches:
+            launch()
+            if kernel == fc.KERNEL_P:
+                ps.append((v0, p[:, :width].clone()))
         torch.cuda.synchronize()
-        plain = plain_fn(x, w, labels, lse, g)
-        gf, pf = got.float(), plain.float()
-        if got.shape != plain.shape or not bool(torch.isfinite(gf).all()):
-            fail(f"{kernel} {name}: shape {tuple(got.shape)} (want "
-                 f"{tuple(plain.shape)}) or non-finite values")
-        err = float((gf - pf).abs().max())
-        rel = err / float(pf.abs().max())
-        rel_ref = float((gf - want).abs().max() / want.abs().max())
-        rel_plain_ref = float((pf - want).abs().max() / want.abs().max())
-        row[kernel] = {"max_abs_err_vs_plain": err, "rel_err_vs_plain": rel,
-                       "rel_err_vs_reference": rel_ref,
-                       "plain_rel_err_vs_reference": rel_plain_ref}
-        if rel > BWD_REL_TOL or rel_ref > BWD_REL_TOL:
-            fail(f"{kernel} {name}: error vs plain {rel:.3e}, vs reference "
-                 f"{rel_ref:.3e} of max|value| (tolerance {BWD_REL_TOL})")
-        out[kernel] = {"max_abs_err": err}
+
+        def run(kernel):
+            def fn():
+                for k, _, _, launch in launches:
+                    if k == kernel:
+                        launch()
+            return fn
+
+        def plain_p():
+            return torch.cat([fc.fused_ce_p_plain(x, w, labels, lse, g, v0, pc.shape[1])
+                              for v0, pc in ps], dim=1)
+
+        def plain_dx():
+            total = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+            for v0, pc in ps:
+                total += fc.fused_ce_dx_chunk_plain(pc, w, v0)
+            return total
+
+        def plain_dw():
+            return torch.cat([fc.fused_ce_dw_chunk_plain(x, pc) for _, pc in ps], dim=1)
+
+        p_all = torch.cat([pc for _, pc in ps], dim=1)
+        plains = {fc.KERNEL_P: plain_p, fc.KERNEL_DX: plain_dx, fc.KERNEL_DW: plain_dw}
+        for kernel, got in ((fc.KERNEL_P, p_all), (fc.KERNEL_DX, dx), (fc.KERNEL_DW, dw)):
+            err, rel = held(kernel, got, plains[kernel](), BWD_KERNEL_REL_TOL)
+            row[kernel] = {"max_abs_err_vs_plain": err, "rel_err_vs_plain": rel}
+            out[kernel] = {"max_abs_err": err}
         if timed:
-            out[kernel]["ms"] = time_ms(
-                lambda: _launch_bwd(kernel, x, w, labels, lse, g), 10)
-            out[kernel]["plain_ms"] = time_ms(
-                lambda: plain_fn(x, w, labels, lse, g), 3)
-            row[kernel].update(ms=out[kernel]["ms"], plain_ms=out[kernel]["plain_ms"])
+            lib = bwd_kernel_library_calls(x, w, labels, lse, g, p_all)
+            for kernel in BWD_KERNELS:
+                t = out[kernel]
+                t["ms"] = time_ms(run(kernel), 10)
+                t["plain_ms"] = time_ms(plains[kernel], 3, warmup=1)
+                t["library_ms"] = lib[kernel]
+                t["bound_ms"], t["bound_by"] = bwd_bound_ms(T, D, V, kernel)
+                t["tflops"] = 2.0 * T * D * V / t["ms"] / 1e9
+                row[kernel].update(ms=t["ms"], plain_ms=t["plain_ms"],
+                                   library_ms=t["library_ms"], tflops=t["tflops"])
+        del ps, p_all, dx, dw, p, launches
+
+    # The whole backward, as FusedCE.backward runs it.
+    got = fc._launch_bwd(x, w, labels, lse, g, "dx" in need, "dw" in need)
+    torch.cuda.synchronize()
+    whole = {}
+    for tname, grad, plain_fn, want in (
+            ("dx", got[0], fc.fused_ce_dx_plain, ref[0]),
+            ("dw", got[1], fc.fused_ce_dw_plain, ref[1])):
+        if tname not in need:
+            if grad is not None:
+                fail(f"fused_ce backward {name}: {tname} computed though not asked for")
+            continue
+        plain = plain_fn(x, w, labels, lse, g)
+        if grad.dtype != torch.bfloat16:
+            fail(f"fused_ce backward {name}: {tname} is {grad.dtype}, want bf16")
+        err, rel = held(f"fused_ce backward {tname}", grad, plain, BWD_REL_TOL)
+        rel_ref = held(f"fused_ce backward {tname} vs reference", grad, want, BWD_REL_TOL)[1]
+        whole[tname] = {"max_abs_err_vs_plain": err, "rel_err_vs_plain": rel,
+                        "rel_err_vs_reference": rel_ref,
+                        "plain_rel_err_vs_reference": rel_err(plain, want)}
+        del plain
+    row["backward"] = whole
+    out["fused_ce_bwd"] = {"max_abs_err": max(v["max_abs_err_vs_plain"] for v in whole.values())}
+    del got, ref
     if timed:
-        # One PyTorch call for both grads: autograd over the materializing
-        # loss (the forward row's logits call), the graph kept between runs.
-        xl = x.detach().requires_grad_()
-        wl = w.detach().requires_grad_()
-        loss = F.cross_entropy(xl.float() @ wl.float(), labels, reduction="none",
-                               ignore_index=-1)
-        lib = time_ms(lambda: torch.autograd.grad(loss, (xl, wl), g,
-                                                  retain_graph=True), 5)
-        row["library_ms_dx_and_dw"] = lib
-        for kernel in out:
-            out[kernel]["library_ms"] = lib
+        t = out["fused_ce_bwd"]
+        t["ms"] = time_ms(lambda: fc._launch_bwd(x, w, labels, lse, g), 10)
+        t["queued_ms"] = time_ms(lambda: fc._launch_bwd(x, w, labels, lse, g), 10,
+                                 queued=True)
+        t["plain_ms"] = time_ms(lambda: (fc.fused_ce_dx_plain(x, w, labels, lse, g),
+                                         fc.fused_ce_dw_plain(x, w, labels, lse, g)), 3, warmup=1)
+        lib = bwd_library_calls(x, w, labels, g)
+        t["library_ms"], t["library_f32_ms"] = lib["bf16"], lib["f32"]
+        t["bound_ms"], t["bound_by"] = bwd_bound_ms(T, D, V, "fused_ce_bwd")
+        t["tflops"] = 6.0 * T * D * V / t["ms"] / 1e9
+        row["times"] = out
     print(f"kernel fused_ce_bwd {json.dumps(row)}")
     return out
 
@@ -372,6 +528,8 @@ def check_bwd_case(name, x, w, labels, g, timed: bool):
 def phase_bwd_kernels(device):
     import torch
 
+    for kernel in BWD_KERNELS:
+        print_ptxas(kernel, "fused_ce")
     gen = torch.Generator(device=device).manual_seed(3)
 
     def inputs(t, d, v, pad_every):
@@ -392,12 +550,14 @@ def phase_bwd_kernels(device):
     g = torch.where(labels >= 0, 1.0 / (T - 4), 0.0)
     bench = check_bwd_case("bench", x, w, labels, g, timed=True)
     errs = [bench]
-    errs.append(check_bwd_case("vocab_1000", *inputs(T, D, 1000, 5), timed=False))
-    # V % 8 != 0 takes the element-wise loader instead of cp.async.
-    errs.append(check_bwd_case("vocab_1001", *inputs(512, D, 1001, 5), timed=False))
+    errs.append(check_bwd_case("dx_only", x, w, labels, g, timed=False, need=("dx",)))
+    errs.append(check_bwd_case("dw_only", x, w, labels, g, timed=False, need=("dw",)))
+    del x, w, labels, g
+    errs.append(check_bwd_case("vocab_32000", *inputs(*BWD_LARGE_VOCAB, 5), timed=True))
+    for name, (t, d, v) in BWD_CASES.items():
+        errs.append(check_bwd_case(name, *inputs(t, d, v, 5), timed=False))
     for kernel, row in bench.items():
-        row["max_abs_err"] = max(e[kernel]["max_abs_err"] for e in errs)
-        row["bound_ms"], row["bound_by"] = bwd_bound_ms(T, D, V, kernel)
+        row["max_abs_err"] = max(e[kernel]["max_abs_err"] for e in errs if kernel in e)
     return bench
 
 
@@ -745,12 +905,13 @@ def leaf_errors(names, got, want):
     return worst
 
 
-def phase_objective(model, tokens):
+def phase_objective(model, tokens, profile_dir):
     """torch.autograd.grad of evaluate_nll at bench width: the path of the
     backward kernels. Returns the launch counts of that path."""
     import torch
 
     from k8s_dra_driver_tpu_torch.ops import LAUNCHES
+    from k8s_dra_driver_tpu_torch.ops.fused_ce import _bwd_chunks
 
     names = [n for n, _ in model.named_parameters()]
     params = list(model.parameters())
@@ -768,7 +929,12 @@ def phase_objective(model, tokens):
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
     launches = dict(LAUNCHES)
-    want = {k: OBJECTIVE_CALLS for k in ("fused_ce_fwd", "fused_ce_dx", "fused_ce_dw")}
+    # evaluate_nll pads its batch x (seq - 1) tokens to a multiple of 256.
+    cfg = model.cfg
+    t_dim = -(-SCORE_BATCH * (cfg.seq_len - 1) // 256) * 256
+    chunks = len(_bwd_chunks(t_dim, cfg.vocab))
+    want = {"fused_ce_fwd": OBJECTIVE_CALLS,
+            **{k: OBJECTIVE_CALLS * chunks for k in BWD_KERNELS}}
     print(f"objective: grad(evaluate_nll) per call {[round(s * 1e3, 3) for s in secs]} "
           f"ms, launches {launches}")
     if launches != want:
@@ -795,6 +961,9 @@ def phase_objective(model, tokens):
     print(f"objective: {obj_ms:.3f} ms a grad(evaluate_nll) call vs {ref_ms:.3f} ms "
           f"for loss_fn value and grad (means of {OBJECTIVE_CALLS} calls after "
           f"{OBJECTIVE_WARMUP} warm-up calls each)")
+    if profile_dir:
+        profile_call(lambda: torch.autograd.grad(model.evaluate_nll(tokens), params),
+                     "objective", profile_dir)
     return launches
 
 
@@ -1366,8 +1535,8 @@ def profile_call(fn, label, out_dir):
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="trace one scoring batch and one training step and "
-                             "write the tables to DIR")
+                        help="trace one scoring batch, one grad(evaluate_nll) call "
+                             "and one training step and write the tables to DIR")
     args = parser.parse_args()
 
     import torch
@@ -1403,7 +1572,7 @@ def main() -> int:
 
     # 3-9. the main paths
     launches, model, tokens = phase_scoring(device, args.profile)
-    obj_launches = phase_objective(model, tokens)
+    obj_launches = phase_objective(model, tokens, args.profile)
     phase_flash_scoring(device, model, args.profile)
     del model
     torch.cuda.empty_cache()
@@ -1434,8 +1603,18 @@ def main() -> int:
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": bench["library_ms"],
+        "library_call": "F.cross_entropy((x @ w).float()) on the bf16 operands",
+        "library_f32_ms": bench["library_f32_ms"],
     }]
-    for name, line in (("fused_ce_dx", 119), ("fused_ce_dw", 144)):
+    # fused_ce_p replaces the logits recompute of both TPU backward kernels;
+    # times are summed over a backward's chunks, and each library call
+    # computes the kernel's function over the whole vocab on the same bf16
+    # operands.
+    for name, line, call in (
+            ("fused_ce_p", "127,153", "torch.exp((x @ w).float() - lse), the label's "
+                                      "1 taken off, times g, to bf16"),
+            ("fused_ce_dx", 119, "torch.matmul(p, w.T) on the kernels' bf16 p"),
+            ("fused_ce_dw", 144, "torch.matmul(x.T, p) on the kernels' bf16 p")):
         row = bwd[name]
         kernels.append({
             "name": name,
@@ -1449,8 +1628,7 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
-            "library_call": "torch.autograd.grad of the materializing loss, "
-                            "dx and dw together",
+            "library_call": call,
         })
     # The library Pallas kernels, jax 0.9.0's flash_attention.py.
     lib = "jax/experimental/pallas/ops/tpu/flash_attention.py"

@@ -164,7 +164,11 @@ class SliceProof(nn.Module):
         but the unembed projection and cross-entropy run in the fused
         kernels, so the [tokens, vocab] logits never reach device memory.
         Differentiable (a pure function in the reference): callers that
-        only score wrap it in ``torch.no_grad()``."""
+        only score wrap it in ``torch.no_grad()``. Its CUDA backward writes
+        the logits' gradient p in bf16 one vocab chunk at a time, each at
+        most ``ops.fused_ce.P_BUDGET`` bytes (at this model's bench shape,
+        4096 tokens by vocab 8192, two chunks of 32 MB), and, with more
+        than one chunk, an f32 [tokens, d_model] sum of dx."""
         cfg = self.cfg
         h = self.forward_hidden(tokens)[:, :-1]
         labels = tokens[:, 1:].reshape(-1).long()

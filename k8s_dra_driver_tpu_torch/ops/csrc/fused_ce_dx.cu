@@ -1,158 +1,115 @@
-// Fused unembed + softmax cross-entropy backward, dx, for Hopper (sm_90a).
+// Fused unembed + softmax cross-entropy backward, dx, for Hopper (sm_90a):
+// step 2 of 3 for each vocab chunk.
 //
 // Replaces k8s_dra_driver_tpu/ops/fused_ce.py:_dx_kernel (the Pallas TPU
-// kernel launched by _fused_ce_bwd). With lse saved by the forward and g
-// the upstream gradient (one value per token),
-//     p[t, v] = (where(v < V, exp(x[t] . w[:, v] - lse[t]), 0)
-//                - (v == labels[t])) * g[t]
-//     dx[t]   = sum_v p[t, v] * w[:, v]                        (bf16 out)
-// without the [T, V] logits or p ever reaching device memory.
+// kernel launched by _fused_ce_bwd). With p_c the chunk [v0, v0 + nc) of
+// p that fused_ce_p.cu wrote (bf16 [T, nc]),
+//     dx += p_c @ w[:, v0:v0 + nc]^T                   ([T, D], bf16 out)
+// summed over the chunks in f32. The first chunk stores its product to an
+// f32 [T, D] scratch, later chunks add into it, and the last one adds and
+// writes bf16 dx; with one chunk dx is written straight away.
 //
-// Bound: compute. 4*T*D*V flops (the logits recomputed, then p @ w^T)
-// against (2*T*D + D*V)*2 + 12*T bytes; at T=4096, D=2048, V=8192 that is
-// 275 GFLOP, 0.278 ms at 989 TFLOP/s bf16 dense, against 0.02 ms for the
-// 64 MB at 3.35 TB/s.
+// Bound: operations. 2*T*D*V flops over the chunks: at T=4096, D=2048,
+// V=8192, 137 GFLOP, 0.139 ms at 989 TFLOP/s bf16 dense. Its bytes are p
+// (T*V*2) and w read and dx written once, 112 MB, 0.033 ms at 3.35 TB/s;
+// the design adds the scratch's f32 traffic, 4*T*D bytes written by the
+// first chunk and read and written by each later one (at 4 chunks 224 MB,
+// much of it in L2).
 //
-// Design. The Pallas kernel kept a [256, D] f32 accumulator in VMEM across
-// the vocab steps of its grid. A Hopper block has 227 KB of shared memory
-// and blocks run in no order, so here one block owns 16 token rows, walks
-// the whole vocab itself, and keeps its [16, D] f32 accumulator in
-// registers: warp k holds the d-fragments f with f % 8 == k (16 for
-// D=2048). The block's x rows [16, D] stay in shared memory; each vocab
-// step stages the w tile [D, 16] (double-buffered with cp.async, 64 KiB
-// at D=2048) and uses it twice: read with ldmatrix.trans as B of the
-// logits tile (mma.sync, bf16 in, f32 accumulate, partial sums over each
-// warp's d-slice meeting in shared memory), then read plainly, which
-// makes it w^T, as B of p @ w^T. No transposed copy of w is made; columns
-// >= V are zero-filled and masked out of p. p is rounded to bf16 for that
-// product; the sum stays in f32. T=4096 gives 256 blocks, one a SM at a
-// time (206 KB of shared memory). w is re-read from L2 by every block.
-// wgmma, TMA and larger token tiles come later.
+// Design: the shared wgmma mainloop of gemm_bf16.cuh (128 x 256 tiles,
+// m64n256k16, a 4-stage TMA ring) with M = T, N = D, K = nc: A is p_c,
+// K-major; B is w[:, chunk] read as [nc, D], which w's row-major [D, V]
+// makes K-major: both in place by descriptor, no copy (the chunk's map
+// starts at w + v0). D is N, tiled like any GEMM, so d_model has no cap.
+// The epilogue adds and stores the f32 scratch in pairs straight from the
+// accumulators (a warp's access covers whole 32-byte sectors), masked at
+// the edges; the last chunk's bf16 dx goes out through the ring by TMA
+// (masked stores where D % 8 != 0).
 //
 // Plain C interface (loaded with ctypes): fused_ce_dx returns the CUDA
-// error code of the launch, 0 on success. It allocates nothing and
-// launches on the stream it is given.
+// error code of the launch (or a CUresult of the tensor-map encoder), 0 on
+// success. It allocates nothing and launches on the stream it is given.
 
-#include "fused_ce_bwd.cuh"
+#include "gemm_bf16.cuh"
 
 namespace {
 
-using namespace fused_ce_bwd;
+using namespace gemm;
 
-size_t smem_bytes(int dp) {
-  return static_cast<size_t>(TILE) * row_pitch(dp) * 2  // x rows
-         + 2 * static_cast<size_t>(dp) * TILE * 2        // two w stages
-         + TAIL_BYTES;
-}
-
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS, 1)
-fused_ce_dx_kernel(const uint16_t* __restrict__ x,
-                   const uint16_t* __restrict__ w,
-                   const int* __restrict__ labels,
-                   const float* __restrict__ lse, const float* __restrict__ g,
-                   bf16* __restrict__ dx, int T, int D, int V) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int nd = (D + TILE - 1) / TILE, dp = nd * TILE, xld = row_pitch(dp);
-  uint16_t* xs = reinterpret_cast<uint16_t*>(smem);  // [16][xld]
-  uint16_t* ws = xs + TILE * xld;                     // 2 x [dp][16]
-  float* red = reinterpret_cast<float*>(ws + 2 * dp * TILE);
-  bf16* ps = reinterpret_cast<bf16*>(red + WARPS * FRAG);  // [16][PLD]
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const Lanes ln(lane);
-  const int t0 = blockIdx.x * TILE;
-  // This thread's element of every p tile: row tid / 16, column tid % 16.
-  const int row = t0 + tid / TILE, col = tid % TILE;
-  const bool live = row < T;
-  const int label = live ? labels[row] : -1;
-  const float row_lse = live ? lse[row] : 0.f;
-  const float row_g = live ? g[row] : 0.f;
-
-  load_rows<VEC>(xs, x, t0, T, D, dp, xld, tid);
-  load_cols<VEC>(ws, w, 0, D, V, dp, tid);
-  cp_async_commit();
-
-  // acc[j][nt]: dx rows t0 + lane/4 (+8), columns 16 f + 8 nt + 2(lane%4) (+1).
-  float acc[MAX_FRAGS][2][4] = {};
-
-  const int nv = (V + TILE - 1) / TILE;
-  for (int vt = 0; vt < nv; ++vt) {
-    // Stage vt has landed, and every warp is done with stage vt - 1,
-    // whose buffer the next load reuses.
-    cp_async_wait_all();
-    __syncthreads();
-    if (vt + 1 < nv)
-      load_cols<VEC>(ws + ((vt + 1) & 1) * dp * TILE, w, (vt + 1) * TILE, D,
-                     V, dp, tid);
-    cp_async_commit();
-    const uint16_t* wb = ws + (vt & 1) * dp * TILE;
-
-    partial_logits(xs, xld, wb, nd, warp, lane, ln, red);
-    __syncthreads();
-    p_element(red, ps, row_lse, row_g, label, vt * TILE + col, V, tid);
-    __syncthreads();
-
-    // acc[16 t, 16 d] += p[16 t, 16 v] @ w^T[16 v, 16 d]: the stage read
-    // without .trans is w^T.
-    unsigned pa[4];
-    ldsm_x4(pa, ps + ln.a_m * PLD + ln.a_k0);
+// Each accumulator pair with c [M, N] f32, row pitch ld, masked at the
+// edges: ADD adds c into the pair, else the pair is stored to c. A row's
+// pairs are at compile-time offsets 8j from one pointer.
+template <bool ADD>
+__device__ __forceinline__ void f32_pass(float (&acc)[128], const Tile& tl, float* c,
+                                         int ld, int M, int N) {
+  const bool pairs = ld % 2 == 0;  // then (row * ld + col) is even: 8-byte aligned
+  const int col0 = tl.col(0);
+  const int left = N - col0;  // offsets >= left lie past c's last column
 #pragma unroll
-    for (int j = 0; j < MAX_FRAGS; ++j) {
-      const int f = warp + WARPS * j;
-      if (f < nd) {
-        unsigned b[4];
-        ldsm_x4(b, wb + wsw(f * TILE + ln.bn_n, ln.bn_half));
-        mma16816(acc[j][0], pa, b[0], b[1]);
-        mma16816(acc[j][1], pa, b[2], b[3]);
+  for (int h = 0; h < 2; ++h) {
+    const int row = tl.row(h);
+    if (row >= M) continue;
+    float* base = c + static_cast<size_t>(row) * ld + col0;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      if (8 * j >= left) continue;
+      float* p = base + 8 * j;
+      float& v0 = acc[4 * j + 2 * h];
+      float& v1 = acc[4 * j + 2 * h + 1];
+      if (ADD) {
+        if (pairs) {
+          const float2 s = *reinterpret_cast<const float2*>(p);
+          v0 += s.x;
+          v1 += s.y;
+        } else {
+          v0 += p[0];
+          if (8 * j + 1 < left) v1 += p[1];
+        }
+      } else if (pairs) {
+        *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+      } else {
+        p[0] = v0;
+        if (8 * j + 1 < left) p[1] = v1;
       }
     }
   }
+}
 
-  const int r0 = t0 + lane / 4, c0 = (lane % 4) * 2;
-#pragma unroll
-  for (int j = 0; j < MAX_FRAGS; ++j) {
-    const int f = warp + WARPS * j;
-    if (f < nd) {
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int t = r0 + (e / 2) * 8, d = f * TILE + nt * 8 + c0 + e % 2;
-          if (t < T && d < D)
-            dx[static_cast<size_t>(t) * D + d] = __float2bfloat16(acc[j][nt][e]);
-        }
+struct DxEpilogue {
+  static constexpr int PRODUCER = 32;
+  float* acc;  // the f32 scratch [T, D]
+  bf16* dx;    // [T, D]
+  int first, last;
+  int tma_store;  // the last chunk, D % 8 == 0
+  __device__ __forceinline__ void operator()(float (&a)[128], const Tile& tl,
+                                             const CUtensorMap* tc, int M, int N) const {
+    if (!first) f32_pass<true>(a, tl, acc, N, M, N);
+    if (!last) {
+      f32_pass<false>(a, tl, acc, N, M, N);
+    } else if (tma_store) {
+      store_tma(a, tl, tc);
+    } else {
+      store_direct(a, tl, dx, N, M, N);
     }
   }
-}
-
-template <bool VEC>
-int launch(const void* x, const void* w, const int* labels, const float* lse,
-           const float* g, void* dx, int T, int D, int V,
-           cudaStream_t stream) {
-  const size_t smem = smem_bytes(padded_d(D));
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_ce_dx_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + TILE - 1) / TILE);
-  fused_ce_dx_kernel<VEC><<<grid, THREADS, smem, stream>>>(
-      static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w), labels,
-      lse, g, static_cast<bf16*>(dx), T, D, V);
-  return static_cast<int>(cudaGetLastError());
-}
+};
 
 }  // namespace
 
-extern "C" int fused_ce_dx(const void* x, const void* w, const int* labels,
-                           const float* lse, const float* g, void* dx, int T,
-                           int D, int V, void* stream) {
-  if (T <= 0 || D <= 0 || V <= 0 || D > MAX_D)
+// One chunk of dx: p [T, nc] bf16 (row pitch ldp) times the columns [v0,
+// v0 + nc) of w [D, V] (row pitch ldw) transposed, into the f32 scratch
+// acc [T, D] (read unless first, written unless last) or, for the last
+// chunk, into dx [T, D] bf16. Pitches are multiples of 8 elements, p and w
+// 16-byte aligned, v0 a multiple of 8.
+extern "C" int fused_ce_dx(const void* p, const void* w, float* acc, void* dx, int T,
+                           int D, int ldp, int ldw, int v0, int nc, int first,
+                           int last, void* stream) {
+  if (T <= 0 || D <= 0 || nc <= 0 || v0 < 0 || v0 % 8 || ldp < nc || ldp % 8 ||
+      ldw % 8 || !aligned16(p) || !aligned16(w))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = D % 8 == 0 && V % 8 == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec ? launch<true>(x, w, labels, lse, g, dx, T, D, V, s)
-             : launch<false>(x, w, labels, lse, g, dx, T, D, V, s);
+  const DxEpilogue epi{acc, static_cast<bf16*>(dx), first != 0, last != 0,
+                       last != 0 && D % 8 == 0};
+  const bf16* wc = static_cast<const bf16*>(w) + v0;
+  return run<true, true>(p, ldp, wc, ldw, dx, D, epi, T, D, nc,
+                         static_cast<cudaStream_t>(stream));
 }

@@ -15,39 +15,19 @@
 // or, as this kernel computes it (three TF32 products), 1.03e11 tensor
 // flops, 0.209 ms at 495 TFLOP/s.
 //
-// bf16 design: wgmma fed by TMA (the tensor cores' full rate is reached
-// only through wgmma).
-//  - Tiles and warpgroups. A block owns a 128 x 256 tile of c; two consumer
-//    warpgroups each own 64 x 256 of it with wgmma m64n256k16 (128 f32
-//    accumulators a thread), and K is walked 64 deep, one 128-byte-swizzled
-//    panel of each operand a k-step.
-//  - Ring. One producer warp (lane 0) keeps 4 stages of A and B tiles in
-//    flight by TMA through full/empty mbarriers: 48 KB a stage, 192 KB in
-//    all, so one block an SM. A consumer releases a stage as soon as the
-//    wgmma group of the next k-step is issued and the previous one has
-//    retired (wait_group 1), so the tensor cores never wait on a release.
-//  - Operands read in place by descriptor, no transposed copy: A row-major
-//    [M, K] K-major; A = h^T (the VJP's dB = A^T dY, h row-major [K, M])
-//    MN-major (trans-a); B row-major [K, N] MN-major (trans-b); B = w^T
-//    (the VJP's dA = dY B^T, w row-major [N, K]) K-major. TMA needs each
-//    leading dimension a multiple of 16 bytes (8 bf16) and a 16-byte
-//    base: the wrapper copies any operand that fails either (no model
-//    path gives one) into an aligned buffer first.
-//  - Epilogue. Each warpgroup stages its 64 x 256 of c in bf16 in the
-//    (by then idle) ring, 128B-swizzled so the stores meet no bank
-//    conflict, and one thread writes it out with four TMA stores: whole
-//    128-byte lines, where stores straight from the accumulators write
-//    16-byte pieces of eight rows each.
-//  - Edges. Ragged M, N and K read zeros through TMA's out-of-bounds fill,
-//    and the TMA stores clip c's ragged edges; where N is not a multiple
-//    of 8 (c's row pitch then does not suit TMA) the epilogue masks
-//    stores straight from the accumulators. K = 0 writes zeros.
-//  - Tile order: one block a tile, numbered in groups of 8 row tiles so
-//    that neighbours share panels of a and b in L2. At the FFN products
-//    the grid is 2048 or 256 tiles on 132 SMs, so the last partial wave
-//    costs at most 3%. (A persistent block an SM walking every 132nd
-//    tile, its producer loading the next tile while the consumers store
-//    the last, ran slower at all four FFN products in a bring-up run.)
+// bf16 design: the shared wgmma mainloop of gemm_bf16.cuh (128 x 256
+// tiles, two consumer warpgroups on m64n256k16, a 4-stage TMA ring from
+// one producer warp, all four operand orientations read in place by
+// descriptor, ragged edges through TMA's zero fill, tiles in groups of 8
+// row tiles) with its plain bf16 epilogue: c staged 128B-swizzled in the
+// idle ring and written by four TMA stores a warpgroup (whole 128-byte
+// lines), or, where N is not a multiple of 8 (c's row pitch then does not
+// suit TMA), masked stores straight from the accumulators. K = 0 writes
+// zeros. At the FFN products the grid is 2048 or 256 tiles on 132 SMs, so
+// the last partial wave costs at most 3%. (A persistent block an SM
+// walking every 132nd tile, its producer loading the next tile while the
+// consumers store the last, ran slower at all four FFN products in a
+// bring-up run.)
 // f32 design: 3xTF32 on wgmma, fed by TMA. TF32 keeps 10 mantissa bits
 // (about three digits), so each operand is split: v = hi + lo with hi =
 // tf32(v), lo = tf32(v - hi), both rounded to nearest (cvt.rna), and c
@@ -90,200 +70,20 @@
 // error code of the launch (or a CUresult of the tensor-map encoder), 0
 // on success. It allocates nothing and launches on the stream it is given.
 
-#include "hopper.cuh"
+#include "gemm_bf16.cuh"
 
 namespace {
 
-using namespace hopper;
+using namespace gemm;
 
-using bf16 = __nv_bfloat16;
-
-constexpr int GROUP = 8;  // row tiles a group of blocks shares
-
-// Row tile mt and column tile nt of block pid, in groups of GROUP row tiles.
-template <int TM, int TN>
-__device__ __forceinline__ void tile_of(int pid, int M, int N, int& mt, int& nt) {
-  const int tm = (M + TM - 1) / TM, tn = (N + TN - 1) / TN;
-  const int per_group = GROUP * tn;
-  const int first = pid / per_group * GROUP;
-  const int rows = min(tm - first, GROUP);
-  const int in = pid % per_group;
-  mt = first + in % rows;
-  nt = in / rows;
-}
-
-// ---- bf16: wgmma fed by TMA -----------------------------------------------
-
-constexpr int HBM = 128, HBN = 256, HBK = 64;  // c tile of a block, k-step
-constexpr int HST = 4;                         // ring stages
-constexpr int HCONSUMERS = 256;                // two warpgroups
-constexpr int HTHREADS = HCONSUMERS + 32;      // + the producer warp
-constexpr int PANEL = 64 * 128;                // one [64][64] bf16 panel
-constexpr int A_BYTES = HBM * HBK * 2;         // 16 KB
-constexpr int B_BYTES = HBN * HBK * 2;         // 32 KB
-constexpr int STAGE = A_BYTES + B_BYTES;
-constexpr size_t HSMEM = 1024 + HST * STAGE + 8 * 2 * HST;
-
-// A_KM: a row-major [M][K] (K-major), else a = h^T, h row-major [K][M]
-// (MN-major). B_KM: b = w^T, w row-major [N][K] (K-major), else b
-// row-major [K][N] (MN-major). The tiles in shared memory: A K-major one
-// [128][64] panel (warpgroup g's rows at 8 KB g), A MN-major two [64 k][64
-// m] panels (warpgroup g's at panel g); B K-major one [256][64] panel, B
-// MN-major four [64 k][64 n] panels.
-template <bool A_KM, bool B_KM>
-__global__ void __launch_bounds__(HTHREADS, 1)
-matmul_bf16_kernel(const __grid_constant__ CUtensorMap ta,
-                   const __grid_constant__ CUtensorMap tb,
-                   const __grid_constant__ CUtensorMap tc,
-                   bf16* __restrict__ c, int M, int N, int K, int tma_store) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + HST * STAGE);
-  uint64_t* empty = full + HST;
-
-  const int t = threadIdx.x;
-  int mt, nt;
-  tile_of<HBM, HBN>(blockIdx.x, M, N, mt, nt);
-  const int m0 = mt * HBM, n0 = nt * HBN;
-  const int nk = (K + HBK - 1) / HBK;
-
-  if (t == 0) {
-    for (int s = 0; s < HST; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], HCONSUMERS);
-    }
-    fence_mbar_init();
-  }
-  __syncthreads();
-
-  if (t >= HCONSUMERS) {
-    // Producer warp: lane 0 issues every copy.
-    if (t == HCONSUMERS) {
-      prefetch_map(&ta);
-      prefetch_map(&tb);
-      for (int kt = 0; kt < nk; ++kt) {
-        const int st = kt % HST, round = kt / HST;
-        if (round > 0) mbar_wait(&empty[st], (round - 1) & 1);
-        mbar_expect_tx(&full[st], STAGE);
-        unsigned char* as = smem + st * STAGE;
-        unsigned char* bs = as + A_BYTES;
-        const int k0 = kt * HBK;
-        if (A_KM) {
-          tma_load_2d(as, &ta, &full[st], k0, m0);
-        } else {
-          tma_load_2d(as, &ta, &full[st], m0, k0);
-          tma_load_2d(as + PANEL, &ta, &full[st], m0 + 64, k0);
-        }
-        if (B_KM) {
-          tma_load_2d(bs, &tb, &full[st], k0, n0);
-        } else {
-#pragma unroll
-          for (int p = 0; p < 4; ++p)
-            tma_load_2d(bs + p * PANEL, &tb, &full[st], n0 + 64 * p, k0);
-        }
-      }
-    }
-    return;
-  }
-
-  // Consumer warpgroup g owns rows 64 g .. 64 g + 63 of the tile.
-  const int g = t / 128, warp = (t % 128) / 32, lane = t % 32;
-  const uint32_t base = smem_u32(smem);
-  if (tma_store && t == 0) prefetch_map(&tc);
-  float acc[128];
-#pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt % HST;
-    mbar_wait(&full[st], (kt / HST) & 1);
-    const uint32_t a = base + st * STAGE, b = a + A_BYTES;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < HBK / 16; ++kk) {
-      const uint64_t da = A_KM ? desc_kmajor(a + g * 8192 + kk * 32)
-                               : desc_mnmajor(a + g * PANEL + kk * 2048, PANEL);
-      const uint64_t db = B_KM ? desc_kmajor(b + kk * 32)
-                               : desc_mnmajor(b + kk * 2048, PANEL);
-      Wgmma<256>::ss<A_KM ? 0 : 1, B_KM ? 0 : 1>(acc, da, db, 1);
-    }
-    wgmma_commit();
-    // The previous k-step's group has retired: release its stage.
-    wgmma_wait<1>();
-    fence_regs(acc);
-    if (kt > 0) mbar_arrive(&empty[(kt - 1) % HST]);
-  }
-  wgmma_wait<0>();
-  fence_regs(acc);
-
-  // acc[4j + {0, 1}]: row 16 warp + lane / 4 of the warpgroup's 64,
-  // columns n0 + 8j + 2(lane % 4) + {0, 1}; acc[4j + {2, 3}]: 8 rows below.
-  if (tma_store) {
-    // Through shared memory: warpgroup g's [64, 256] as four 128B-swizzled
-    // [64][64] panels (chunk x of row r at chunk x ^ (r % 8), so the eight
-    // rows a store instruction writes fall in distinct banks), then four
-    // TMA stores, which clip the ragged edges. The ring is free once both
-    // warpgroups have retired their last products.
-    named_sync(1, HCONSUMERS);
-    unsigned char* cs = smem + g * 4 * PANEL;
-    const int row = 16 * warp + lane / 4;
-#pragma unroll
-    for (int j = 0; j < 32; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        *reinterpret_cast<uint32_t*>(
-            cs + (j / 8) * PANEL + (row + 8 * h) * 128 +
-            (((j % 8) ^ (lane / 4)) * 16) + (lane % 4) * 4) =
-            pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
-    fence_async_smem();
-    named_sync(2 + g, 128);
-    if (t % 128 == 0) {
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-        tma_store_2d(&tc, cs + p * PANEL, n0 + 64 * p, m0 + 64 * g);
-      bulk_commit();
-      bulk_wait_read();
-    }
-    return;
-  }
-  // N % 8 != 0 (no tensor map of c): masked stores from the accumulators.
-  const int r = m0 + 64 * g + 16 * warp + lane / 4;
-  const bool pairs = N % 2 == 0;  // then (row * N + col) is even: 4-byte aligned
-#pragma unroll
-  for (int j = 0; j < 32; ++j) {
-    const int col = n0 + 8 * j + 2 * (lane % 4);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = r + 8 * h;
-      if (row >= M || col >= N) continue;
-      bf16* p = c + static_cast<size_t>(row) * N + col;
-      const float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
-      if (pairs) {
-        *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
-      } else {
-        p[0] = __float2bfloat16(v0);
-        if (col + 1 < N) p[1] = __float2bfloat16(v1);
-      }
-    }
-  }
-}
+// ---- bf16: the shared mainloop, plain bf16 epilogue ------------------------
 
 template <bool A_KM, bool B_KM>
 int launch_bf16(const void* a, const void* b, void* c, int M, int N, int K,
                 int lda, int ldb, cudaStream_t s) {
-  CUtensorMap ta, tb, tc = {};
   const int tma_store = N % 8 == 0;  // c's row pitch, as TMA needs it
-  int err = A_KM ? make_map(&ta, a, M, K, HBM, lda) : make_map(&ta, a, K, M, 64, lda);
-  if (!err)
-    err = B_KM ? make_map(&tb, b, N, K, HBN, ldb) : make_map(&tb, b, K, N, 64, ldb);
-  if (!err && tma_store) err = make_map(&tc, c, M, N, 64);
-  if (err) return err;
-  const int grid = ((M + HBM - 1) / HBM) * ((N + HBN - 1) / HBN);
-  return static_cast<int>(launch_cluster(matmul_bf16_kernel<A_KM, B_KM>, dim3(grid),
-                                         HTHREADS, HSMEM, 1, s, ta, tb, tc,
-                                         static_cast<bf16*>(c), M, N, K,
-                                         tma_store));
+  const StoreBf16 epi{static_cast<bf16*>(c), N, tma_store};
+  return run<A_KM, B_KM>(a, lda, b, ldb, c, N, epi, M, N, K, s);
 }
 
 // ---- f32: 3xTF32 on wgmma fed by TMA --------------------------------------
@@ -294,9 +94,7 @@ constexpr int FTILE = 128 * FBK * 4;           // one [128][32] f32 tile: 16 KB
 constexpr int FRAW = 2 * FTILE;                // a and b as TMA brings them
 constexpr int FSPLIT = 4 * FTILE;              // a_hi, a_lo, b_hi, b_lo
 constexpr size_t FSMEM = 1024 + FRST * FRAW + 2 * FSPLIT + 8 * 2 * FRST;
-constexpr int FTHREADS = HCONSUMERS + 128;  // + the producer warpgroup
-// Registers a thread, after setmaxnreg: 2 x 128 x 232 + 128 x 40 <= 64K.
-constexpr int FREGS_CONSUMER = 232, FREGS_PRODUCER = 40;
+constexpr int FTHREADS = CONSUMERS + 128;  // + the producer warpgroup
 
 // v = hi + lo + (what is dropped, below 2^-22 |v|): hi = tf32(v), lo =
 // tf32(v - hi), both rounded to nearest, ties away (v - hi is exact).
@@ -316,7 +114,7 @@ __device__ __forceinline__ void split_tile(const unsigned char* raw, unsigned ch
                                            unsigned char* lo, int t) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int q = t + HCONSUMERS * i;
+    const int q = t + CONSUMERS * i;
     const int x = KM ? q / 8 : q % 128, c = KM ? q % 8 : q / 128;
     const int off = x * 128 + ((c ^ (x % 8)) << 4);
     float v[4];
@@ -361,17 +159,17 @@ matmul_f32_kernel(const __grid_constant__ CUtensorMap ta,
   if (t == 0) {
     for (int s = 0; s < FRST; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], HCONSUMERS);
+      mbar_init(&empty[s], CONSUMERS);
     }
     fence_mbar_init();
   }
   __syncthreads();
 
-  if (t >= HCONSUMERS) {
+  if (t >= CONSUMERS) {
     // Producer warpgroup: one thread issues every copy; the others only
     // hand their registers to the consumers.
-    setmaxnreg_dec<FREGS_PRODUCER>();
-    if (t == HCONSUMERS) {
+    setmaxnreg_dec<REGS_PRODUCER>();
+    if (t == CONSUMERS) {
       prefetch_map(&ta);
       prefetch_map(&tb);
       for (int kt = 0; kt < nk; ++kt) {
@@ -389,7 +187,7 @@ matmul_f32_kernel(const __grid_constant__ CUtensorMap ta,
     return;
   }
 
-  setmaxnreg_inc<FREGS_CONSUMER>();
+  setmaxnreg_inc<REGS_CONSUMER>();
   // k-step kt's raw tiles -> split buffer kt % 2; the raw stage is then free.
   auto split_step = [&](int kt) {
     const int st = kt % FRST;
@@ -411,7 +209,7 @@ matmul_f32_kernel(const __grid_constant__ CUtensorMap ta,
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
 
   split_step(0);
-  named_sync(1, HCONSUMERS);
+  named_sync(1, CONSUMERS);
   for (int kt = 0; kt < nk; ++kt) {
     const uint32_t a_hi = smem_u32(halves + (kt % 2) * FSPLIT) + g * (FTILE / 2);
     const uint32_t a_lo = a_hi + FTILE;
@@ -436,7 +234,7 @@ matmul_f32_kernel(const __grid_constant__ CUtensorMap ta,
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] += part[i];
     // Both warpgroups: the next halves written, this step's halves read.
-    named_sync(1, HCONSUMERS);
+    named_sync(1, CONSUMERS);
   }
 
   // acc[4j + {0, 1}]: row 16 warp + lane / 4 of the warpgroup's 64,
@@ -479,8 +277,6 @@ int launch_f32(const void* a, const void* b, void* c, int M, int N, int K,
                                          FTHREADS, FSMEM, 1, s, ta, tb,
                                          static_cast<float*>(c), M, N, K));
 }
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 

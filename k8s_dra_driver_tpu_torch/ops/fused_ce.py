@@ -7,10 +7,19 @@ of ``k8s_dra_driver_tpu/ops/fused_ce.py``).
 ``FusedCE``, a ``torch.autograd.Function`` that saves ``(x, w, labels,
 lse)`` as the JAX custom VJP does and recomputes each logits tile in the
 backward. On CUDA tensors (bf16 x and w) the forward launches
-``csrc/fused_ce_fwd.cu`` and the backward ``csrc/fused_ce_dx.cu`` and
-``csrc/fused_ce_dw.cu``, or raises; on CPU tensors both run the plain
-PyTorch versions below. ``reference_ce_losses`` materializes the logits
-and is the check.
+``csrc/fused_ce_fwd.cu``, or raises; on CPU tensors both directions run
+the plain PyTorch versions below. ``reference_ce_losses`` materializes the
+logits and is the check.
+
+The CUDA backward walks the vocab in chunks (``_bwd_chunks``). For each
+chunk ``csrc/fused_ce_p.cu`` recomputes the logits and writes p =
+(softmax - onehot) * g for the chunk's columns in bf16 to a scratch
+``p_c`` [T, chunk], and ``csrc/fused_ce_dx.cu`` and ``csrc/fused_ce_dw.cu``
+multiply it into dx and dw: three bf16 wgmma products, the last two each
+only for the grad asked for. Neither direction writes the
+[T, vocab] logits to device memory; the backward writes p one chunk at a
+time, at most ``P_BUDGET`` bytes (except that a chunk is never narrower
+than 256 columns), and with more than one chunk an f32 [T, D] sum of dx.
 
 A label of -1 matches no class (its loss is the row's logsumexp): callers
 pad the token dimension with it, as ``evaluate_nll`` does. Other labels
@@ -19,19 +28,30 @@ must lie in ``[0, vocab)``.
 
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+from functools import partial
+from typing import Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from k8s_dra_driver_tpu_torch.ops import _build, on_cpu
+from k8s_dra_driver_tpu_torch.ops.kernels import _operand
 
 KERNEL = "fused_ce_fwd"
+KERNEL_P = "fused_ce_p"
 KERNEL_DX = "fused_ce_dx"
 KERNEL_DW = "fused_ce_dw"
-# The backward kernels keep a [16, d_model] (dx) or [d_model, 16] (dw) f32
-# accumulator in registers, 16 fragments a warp: d_model up to 2048.
-MAX_BWD_D = 2048
+# The backward's vocab chunks are multiples of the kernels' 256-column
+# tile (but for the last), as wide as keeps p_c, [T, chunk] bf16, within
+# P_BUDGET bytes: 32 MB, so that p_c, written by fused_ce_p and read at
+# once by the two products, fits the H100's 50 MB L2, and so that no [T,
+# vocab] tensor of the flagship's bench shape (T = 4096, V = 8192: 64 MB)
+# reaches device memory. Wider chunks are faster (fewer launches, fuller
+# waves, less of dx's f32 sum): ops/fused_ce_budget.py times the whole
+# backward at that shape for 16, 32 and 64 MB (4, 2 and 1 chunks);
+# its readings are in PERF.md.
+BWD_TILE = 256
+P_BUDGET = 32 * 2 ** 20
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
@@ -85,11 +105,8 @@ class FusedCE(torch.autograd.Function):
                 dx = fused_ce_dx_plain(x, w, labels, lse, g, ctx.block_v)
             if need_dw:
                 dw = fused_ce_dw_plain(x, w, labels, lse, g, ctx.block_v)
-        else:
-            if need_dx:
-                dx = _launch_bwd(KERNEL_DX, x, w, labels, lse, g)
-            if need_dw:
-                dw = _launch_bwd(KERNEL_DW, x, w, labels, lse, g)
+        elif need_dx or need_dw:
+            dx, dw = _launch_bwd(x, w, labels, lse, g, need_dx, need_dw)
         return dx, dw, None, None, None
 
 
@@ -118,22 +135,105 @@ def _launch(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor):
     return lse, picked
 
 
-def _launch_bwd(kernel: str, x: torch.Tensor, w: torch.Tensor,
-                labels: torch.Tensor, lse: torch.Tensor,
-                g: torch.Tensor) -> torch.Tensor:
-    """Run one CUDA backward kernel: ``fused_ce_dx`` returns dx [T, D],
-    ``fused_ce_dw`` returns dw [D, vocab], both bf16."""
+def _bwd_chunks(t_dim: int, vocab: int) -> List[Tuple[int, int]]:
+    """The CUDA backward's plan: (first column, width) of each vocab chunk,
+    covering [0, vocab) in order. Every chunk but the last is the widest
+    multiple of ``BWD_TILE`` whose p_c (``t_dim`` x width bf16) fits
+    ``P_BUDGET`` bytes, and at least ``BWD_TILE``; one chunk when the whole
+    vocab fits."""
+    width = max(BWD_TILE, P_BUDGET // (2 * t_dim) // BWD_TILE * BWD_TILE)
+    return [(v0, min(width, vocab - v0)) for v0 in range(0, vocab, width)]
+
+
+def _tma_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` [r, c] as the kernels read it by TMA, with its row pitch in
+    ``stride(0)``: ``t`` itself when that pitch spans a multiple of 16
+    bytes and its base is 16-byte aligned (``kernels._operand``'s rule),
+    else the first c columns of an aligned copy."""
+    buf, _, _ = _operand(t)
+    return buf[:, :t.shape[1]]
+
+
+def _launch_p(x: torch.Tensor, w: torch.Tensor, labels32: torch.Tensor,
+              lse: torch.Tensor, g: torch.Tensor, p: torch.Tensor, v0: int) -> None:
+    """``fused_ce_p``: p (a [T, width] bf16 view with an aligned row pitch)
+    = the chunk of p for w's columns [v0, v0 + width). x and w as
+    ``_tma_rows`` gives them; lse and g f32."""
+    (t_dim, d), vocab = x.shape, w.shape[1]
+    _build.launch(KERNEL_P, x.device, x, w, labels32, lse, g, p, t_dim, d, vocab,
+                  x.stride(0), w.stride(0), p.stride(0), v0, p.shape[1])
+
+
+def _launch_dx(p: torch.Tensor, w: torch.Tensor, acc: torch.Tensor, dx: torch.Tensor,
+               v0: int, first: bool, last: bool) -> None:
+    """``fused_ce_dx``: one chunk's p @ w[:, chunk]^T into the f32 scratch
+    ``acc`` [T, D] (stored if ``first``, else added into) or, if ``last``,
+    added to acc (unless also first) and written to ``dx`` [T, D] bf16."""
+    t_dim, d = dx.shape
+    _build.launch(KERNEL_DX, p.device, p, w, acc, dx, t_dim, d, p.stride(0), w.stride(0),
+                  v0, p.shape[1], int(first), int(last))
+
+
+def _launch_dw(x: torch.Tensor, p: torch.Tensor, dw: torch.Tensor, v0: int) -> None:
+    """``fused_ce_dw``: dw[:, v0:v0 + width] = x^T @ p, dw [D, V] bf16."""
+    (t_dim, d), vocab = x.shape, dw.shape[1]
+    _build.launch(KERNEL_DW, x.device, x, p, dw, t_dim, d, vocab, x.stride(0),
+                  p.stride(0), v0, p.shape[1])
+
+
+def _bwd_launches(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                  lse: torch.Tensor, g: torch.Tensor, need_dx: bool = True,
+                  need_dw: bool = True
+                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
+                             torch.Tensor, List[tuple]]:
+    """The CUDA backward, planned and not yet launched: (dx [T, D] bf16 or
+    None, dw [D, vocab] bf16 or None, p, launches). ``launches`` lists
+    (kernel, v0, width, launch) for each chunk of ``_bwd_chunks``, in the
+    order they must run: ``fused_ce_p``, then ``fused_ce_dx`` if
+    ``need_dx``, then ``fused_ce_dw`` if ``need_dw``; ``launch()`` issues
+    the kernel. p is the scratch whose first ``width`` columns hold a
+    chunk's p after its ``fused_ce_p``. The scratch (p; the f32 sum of dx
+    with more than one chunk) and the outputs come from ``torch.empty``."""
     labels32 = _kernel_labels(x, w, labels)
     t_dim, d = x.shape
     vocab = w.shape[1]
-    if d > MAX_BWD_D:
-        raise ValueError(f"the CUDA fused_ce backward kernels take d_model <= "
-                         f"{MAX_BWD_D}, got {d}")
+    x, w = _tma_rows(x), _tma_rows(w)
     lse, g = lse.float().contiguous(), g.float().contiguous()
-    shape = (t_dim, d) if kernel == KERNEL_DX else (d, vocab)
-    out = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
-    _build.launch(kernel, x.device, x, w, labels32, lse, g, out, t_dim, d, vocab)
-    return out
+    chunks = _bwd_chunks(t_dim, vocab)
+    pitch = -(-chunks[0][1] // 8) * 8  # a multiple of 16 bytes
+    p = torch.empty((t_dim, pitch), dtype=torch.bfloat16, device=x.device)
+    dx = dw = acc = None
+    if need_dx:
+        dx = torch.empty((t_dim, d), dtype=torch.bfloat16, device=x.device)
+        # With one chunk dx is written straight away and acc is not read.
+        acc = dx if len(chunks) == 1 else torch.empty(
+            (t_dim, d), dtype=torch.float32, device=x.device)
+    if need_dw:
+        dw = torch.empty((d, vocab), dtype=torch.bfloat16, device=x.device)
+    launches = []
+    for i, (v0, width) in enumerate(chunks):
+        pc = p[:, :width]
+        launches.append((KERNEL_P, v0, width,
+                         partial(_launch_p, x, w, labels32, lse, g, pc, v0)))
+        if need_dx:
+            launches.append((KERNEL_DX, v0, width, partial(
+                _launch_dx, pc, w, acc, dx, v0, i == 0, i == len(chunks) - 1)))
+        if need_dw:
+            launches.append((KERNEL_DW, v0, width, partial(_launch_dw, x, pc, dw, v0)))
+    return dx, dw, p, launches
+
+
+def _launch_bwd(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                lse: torch.Tensor, g: torch.Tensor, need_dx: bool = True,
+                need_dw: bool = True
+                ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Run the CUDA backward: (dx [T, D] bf16 or None, dw [D, vocab] bf16 or
+    None), each grad only when asked for, by the launches of
+    ``_bwd_launches`` in order."""
+    dx, dw, _, launches = _bwd_launches(x, w, labels, lse, g, need_dx, need_dw)
+    for *_, launch in launches:
+        launch()
+    return dx, dw
 
 
 def _plain_parts(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
@@ -171,42 +271,57 @@ def fused_ce_losses_plain(x: torch.Tensor, w: torch.Tensor,
     return lse - picked
 
 
+def fused_ce_p_plain(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                     lse: torch.Tensor, g: torch.Tensor, v0: int,
+                     width: int) -> torch.Tensor:
+    """``fused_ce_p`` in plain PyTorch: p [T, width] f32 for w's columns
+    [v0, v0 + width), p = (exp(x @ w_chunk - lse) - onehot(label)) * g, the
+    logits recomputed in f32 (every column lies below vocab)."""
+    logits = x.float() @ w[:, v0:v0 + width].float()
+    cols = torch.arange(v0, v0 + width, device=x.device)[None, :]
+    p = torch.exp(logits - lse.float()[:, None])
+    return (p - (cols == labels.long()[:, None]).float()) * g.float()[:, None]
+
+
+def fused_ce_dx_chunk_plain(p: torch.Tensor, w: torch.Tensor, v0: int) -> torch.Tensor:
+    """``fused_ce_dx``'s product for one chunk in plain PyTorch: p [T,
+    width] @ w[:, v0:v0 + width]^T in f32, [T, D]."""
+    return p.float() @ w[:, v0:v0 + p.shape[1]].float().T
+
+
+def fused_ce_dw_chunk_plain(x: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``fused_ce_dw``'s product for one chunk in plain PyTorch: x^T @ p in
+    f32, [D, width]."""
+    return x.float().T @ p.float()
+
+
 def _p_tiles(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
              lse: torch.Tensor, g: torch.Tensor, block_v: int
-             ) -> Iterator[Tuple[int, torch.Tensor, torch.Tensor]]:
-    """Yield (v0, w tile f32 [D, block_v], p [T, block_v] f32) per vocab
-    tile, p = (where(col < V, exp(logits - lse), 0) - onehot(label)) * g,
-    with the logits tile recomputed from x @ w_tile in f32."""
-    vocab = w.shape[1]
+             ) -> Iterator[Tuple[int, torch.Tensor]]:
+    """Yield (v0, p [T, width] f32) per vocab tile of ``block_v`` columns
+    (the last one ragged), p from ``fused_ce_p_plain``."""
     xf = x.float()
-    lab = labels.long()[:, None]
-    lse2, g2 = lse.float()[:, None], g.float()[:, None]
+    vocab = w.shape[1]
     for v0 in range(0, vocab, block_v):
-        wt = w[:, v0:v0 + block_v].float()
-        if wt.shape[1] < block_v:
-            wt = F.pad(wt, (0, block_v - wt.shape[1]))
-        cols = torch.arange(v0, v0 + block_v, device=x.device)[None, :]
-        p = torch.where(cols < vocab, torch.exp(xf @ wt - lse2), 0.0)
-        yield v0, wt, (p - (cols == lab).float()) * g2
+        yield v0, fused_ce_p_plain(xf, w, labels, lse, g, v0, min(block_v, vocab - v0))
 
 
 def fused_ce_dx_plain(x, w, labels, lse, g, block_v: int = 512) -> torch.Tensor:
     """``_dx_kernel`` in plain PyTorch: dx = sum over vocab tiles of
     p @ w_tile^T, accumulated in f32, returned in ``x.dtype``."""
     dx = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    for _, wt, p in _p_tiles(x, w, labels, lse, g, block_v):
-        dx += p @ wt.T
+    for v0, p in _p_tiles(x, w, labels, lse, g, block_v):
+        dx += fused_ce_dx_chunk_plain(p, w, v0)
     return dx.to(x.dtype)
 
 
 def fused_ce_dw_plain(x, w, labels, lse, g, block_v: int = 512) -> torch.Tensor:
     """``_dw_kernel`` in plain PyTorch: dw[:, tile] = x^T @ p in f32,
-    returned in ``w.dtype`` and sliced back to the true vocab."""
-    vocab = w.shape[1]
-    xt = x.float().T
-    dw = torch.empty((x.shape[1], vocab), dtype=w.dtype, device=x.device)
-    for v0, _, p in _p_tiles(x, w, labels, lse, g, block_v):
-        dw[:, v0:v0 + block_v] = (xt @ p)[:, :vocab - v0].to(w.dtype)
+    returned in ``w.dtype``."""
+    xf = x.float()
+    dw = torch.empty((x.shape[1], w.shape[1]), dtype=w.dtype, device=x.device)
+    for v0, p in _p_tiles(x, w, labels, lse, g, block_v):
+        dw[:, v0:v0 + p.shape[1]] = fused_ce_dw_chunk_plain(xf, p).to(w.dtype)
     return dw
 
 

@@ -183,9 +183,47 @@ def test_bwd_plain_is_what_autograd_runs():
     np.testing.assert_array_equal(only_w.numpy(), got[1].numpy())
 
 
-def test_cuda_backward_refuses_what_its_kernels_do_not_take():
-    """The backward wrappers check before they build or launch: f32
-    operands and d_model beyond the kernels' accumulator raise."""
+def _fake_kernels(monkeypatch):
+    """Replace ``_build.launch`` by each backward kernel's plain version,
+    run on the very buffers ``_launch_bwd`` hands the kernel (so p is
+    rounded to bf16 by its bf16 scratch, as the kernels round it), and
+    record every launch as (name, args)."""
+    calls = []
+
+    def launch(name, device, *args):
+        calls.append((name, args))
+        if name == torch_ce.KERNEL_P:
+            x, w, lab, lse, g, p, _, _, _, _, _, _, v0, width = args
+            p.copy_(torch_ce.fused_ce_p_plain(x, w, lab, lse, g, v0, width))
+        elif name == torch_ce.KERNEL_DX:
+            p, w, acc, dx, _, _, _, _, v0, _, first, last = args
+            s = torch_ce.fused_ce_dx_chunk_plain(p, w, v0)
+            if not first:
+                s += acc
+            (dx if last else acc).copy_(s)
+        else:
+            assert name == torch_ce.KERNEL_DW
+            x, p, dw, _, _, _, _, _, v0, width = args
+            dw[:, v0:v0 + width] = torch_ce.fused_ce_dw_chunk_plain(x, p)
+
+    monkeypatch.setattr(_build, "launch", launch)
+    return calls
+
+
+def _bwd_args(T, D, V, dtype=torch.bfloat16, seed=29):
+    x, w, labels = _inputs(seed, T, D, V)
+    labels[::4] = -1
+    g = _cotangent(9, labels)
+    tx = torch.from_numpy(x).to(dtype)
+    tw = torch.from_numpy(w).to(dtype)
+    tl = torch.from_numpy(labels)
+    lse = torch.logsumexp(tx.float() @ tw.float(), dim=1)
+    return tx, tw, tl, lse, torch.from_numpy(g)
+
+
+def test_cuda_backward_refuses_what_its_kernels_do_not_take(monkeypatch):
+    """The backward wrapper checks before it builds or launches: f32
+    operands raise. d_model has no cap: at 4096 the kernels are launched."""
     def args(d, dtype):
         x = torch.empty(256, d, dtype=dtype, device="meta")
         w = torch.empty(d, 512, dtype=dtype, device="meta")
@@ -193,11 +231,159 @@ def test_cuda_backward_refuses_what_its_kernels_do_not_take():
         vec = torch.empty(256, device="meta")
         return x, w, lab, vec, vec
 
-    for kernel in (torch_ce.KERNEL_DX, torch_ce.KERNEL_DW):
-        with pytest.raises(TypeError, match="bf16"):
-            torch_ce._launch_bwd(kernel, *args(64, torch.float32))
-        with pytest.raises(ValueError, match="d_model <= 2048"):
-            torch_ce._launch_bwd(kernel, *args(4096, torch.bfloat16))
+    with pytest.raises(TypeError, match="bf16"):
+        torch_ce._launch_bwd(*args(64, torch.float32))
+    calls = _fake_kernels(monkeypatch)
+    dx, dw = torch_ce._launch_bwd(*_bwd_args(256, 4096, 512))
+    assert [name for name, _ in calls] == [
+        torch_ce.KERNEL_P, torch_ce.KERNEL_DX, torch_ce.KERNEL_DW]
+    assert dx.shape == (256, 4096) and dw.shape == (4096, 512)
+
+
+# (T, V, budget): one chunk when everything fits, a budget that is not a
+# multiple of a tile's bytes, the minimum width, the bench shape at the
+# module's budget (32 MB: two chunks) and at 64 MB (one), three chunks
+# with a ragged last, 32000 (eight, the last ragged), a 16 MB budget, a 128k vocab.
+@pytest.mark.parametrize("T,V,budget,n", [
+    (256, 1000, 2 ** 20, 1), (256, 1000, 3 * 2 ** 17, 2), (256, 1000, 1, 4),
+    (512, 256, 2 ** 18, 1), (4096, 8192, None, 2), (4096, 8192, 64 * 2 ** 20, 1),
+    (4096, 20000, 64 * 2 ** 20, 3), (4096, 32000, None, 8), (4096, 1000, None, 1),
+    (4096, 8192, 16 * 2 ** 20, 4), (4096, 131072, None, 32)])
+def test_bwd_chunks_cover_the_vocab_within_the_budget(monkeypatch, T, V, budget, n):
+    if budget is None:
+        budget = torch_ce.P_BUDGET
+    monkeypatch.setattr(torch_ce, "P_BUDGET", budget)
+    chunks = torch_ce._bwd_chunks(T, V)
+    assert len(chunks) == n
+    assert chunks[0][0] == 0
+    for (v0, width), (nxt, _) in zip(chunks, chunks[1:]):
+        assert nxt == v0 + width
+        assert width % torch_ce.BWD_TILE == 0
+    assert sum(width for _, width in chunks) == V
+    widest = max(width for _, width in chunks)
+    assert 2 * T * widest <= budget or widest == torch_ce.BWD_TILE
+    if n > 1:  # the widest multiple of the tile that fits
+        assert 2 * T * (widest + torch_ce.BWD_TILE) > budget
+
+
+def _chunked_plain_grads(x, w, labels, lse, g, chunks, need_dx, need_dw):
+    """The per-kernel plain versions composed over ``chunks`` as the CUDA
+    backward launches them, with f32 p and f32 sums."""
+    dx = torch.zeros(x.shape, dtype=torch.float32) if need_dx else None
+    dw = torch.empty(w.shape, dtype=torch.float32) if need_dw else None
+    for v0, width in chunks:
+        p = torch_ce.fused_ce_p_plain(x, w, labels, lse, g, v0, width)
+        if need_dx:
+            dx += torch_ce.fused_ce_dx_chunk_plain(p, w, v0)
+        if need_dw:
+            dw[:, v0:v0 + width] = torch_ce.fused_ce_dw_chunk_plain(x, p)
+    return (dx.to(x.dtype) if need_dx else None,
+            dw.to(w.dtype) if need_dw else None)
+
+
+@pytest.mark.parametrize("need", ["both", "dx", "dw"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_plain_versions_match_jax_custom_vjp(monkeypatch, dtype, need):
+    """Four chunks of 256, 256, 256 and 232 columns at V = 1000, rows
+    labelled -1."""
+    x, w, labels, lse, g = _bwd_args(256, 128, 1000, dtype)
+    monkeypatch.setattr(torch_ce, "P_BUDGET", 2 * 256 * 256)
+    chunks = torch_ce._bwd_chunks(256, 1000)
+    assert [c[1] for c in chunks] == [256, 256, 256, 232]
+    jx, jw = (jnp.asarray(t.float().numpy()) for t in (x, w))
+    if dtype == torch.bfloat16:
+        jx, jw = jx.astype(jnp.bfloat16), jw.astype(jnp.bfloat16)
+    want = _jax_grads(jx, jw, labels.numpy(), g.numpy())
+    got = _chunked_plain_grads(x, w, labels, lse, g, chunks, need != "dw", need != "dx")
+    tol = GRAD_F32_TOL if dtype == torch.float32 else GRAD_BF16_TOL
+    for name, a, b in zip(("dx", "dw"), got, want):
+        if need in ("both", name):
+            np.testing.assert_allclose(a.float().numpy(), b, **tol)
+        else:
+            assert a is None
+
+
+# The card's tolerance for the backward kernels (chip_smoke.py's
+# BWD_REL_TOL): max|err| / max|grad|.
+BWD_REL_TOL = 1e-2
+
+
+@pytest.mark.parametrize("T,D,V,budget", [(256, 128, 1000, 2 * 256 * 256),
+                                          (512, 64, 1000, torch_ce.P_BUDGET)])
+def test_bf16_p_emulation_matches_jax_custom_vjp(monkeypatch, T, D, V, budget):
+    """The kernels' arithmetic, emulated by ``_launch_bwd`` with each
+    kernel's plain version on its buffers: p rounded to bf16 before both
+    products, f32 sums, bf16 dx and dw. Measured here against the custom
+    VJP's f32 p: 5.7e-3 (dx) and 4.0e-3 (dw) of max|grad| at 4 chunks,
+    5.7e-3 and 3.3e-3 at one chunk, each one bf16 step of an output near
+    max|grad| (where ``fused_ce_bwd_plain``, f32 p, gives 1.4e-3 and
+    3.1e-5, and 1.8e-4 and 3.2e-6); the card's bound is 1e-2."""
+    _fake_kernels(monkeypatch)
+    monkeypatch.setattr(torch_ce, "P_BUDGET", budget)
+    x, w, labels, lse, g = _bwd_args(T, D, V)
+    got = torch_ce._launch_bwd(x, w, labels, lse, g)
+    want = _jax_grads(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16),
+                      jnp.asarray(w.float().numpy()).astype(jnp.bfloat16),
+                      labels.numpy(), g.numpy())
+    for a, b in zip(got, want):
+        rel = np.abs(a.float().numpy() - b).max() / np.abs(b).max()
+        assert rel <= BWD_REL_TOL, rel
+
+
+# (T, D, V): aligned; D and V off the 8-element TMA pitch (aligned copies);
+# a vocab whose last chunk is ragged.
+@pytest.mark.parametrize("T,D,V", [(256, 128, 1024), (256, 100, 1001), (256, 64, 700)])
+@pytest.mark.parametrize("need_dx,need_dw", [(True, True), (True, False), (False, True)])
+def test_launch_bwd_follows_the_plan(monkeypatch, T, D, V, need_dx, need_dw):
+    """``_launch_bwd`` on CPU tensors, each kernel recorded: the launches
+    in the plan's order and number, each operand with a row pitch of a
+    multiple of 16 bytes (an aligned copy where D or V is not), and the
+    grads of the plain versions."""
+    calls = _fake_kernels(monkeypatch)
+    x, w, labels, lse, g = _bwd_args(T, D, V)
+    monkeypatch.setattr(torch_ce, "P_BUDGET", 2 * T * 256)
+    dx, dw = torch_ce._launch_bwd(x, w, labels, lse, g, need_dx, need_dw)
+    chunks = torch_ce._bwd_chunks(T, V)
+    kinds = [torch_ce.KERNEL_P] + [torch_ce.KERNEL_DX] * need_dx + [torch_ce.KERNEL_DW] * need_dw
+    assert [name for name, _ in calls] == kinds * len(chunks)
+    step = 16 // x.element_size()
+    # The operands each kernel reads by TMA: x, w and p_c.
+    read = {torch_ce.KERNEL_P: (0, 1, 5), torch_ce.KERNEL_DX: (0, 1),
+            torch_ce.KERNEL_DW: (0, 1)}
+    for name, args in calls:
+        for i in read[name]:
+            assert args[i].stride(0) % step == 0 and args[i].stride(1) == 1
+            assert args[i].data_ptr() % 16 == 0
+        if name == torch_ce.KERNEL_P:
+            xk, wk, _, _, _, p, t_dim, d, vocab, ldx, ldw, ldp, v0, width = args
+            assert (t_dim, d, vocab) == (T, D, V)
+            assert (ldx, ldw, ldp) == (xk.stride(0), wk.stride(0), p.stride(0))
+            assert ldx == -(-D // step) * step and ldw == -(-V // step) * step
+            assert (v0, width) in chunks and p.shape == (T, width)
+        elif name == torch_ce.KERNEL_DX:
+            p, _, acc, _, t_dim, d, _, _, v0, width, first, last = args
+            i = chunks.index((v0, width))
+            assert (first, last) == (int(i == 0), int(i == len(chunks) - 1))
+            assert acc.dtype == (torch.float32 if len(chunks) > 1 else torch.bfloat16)
+    want = torch_ce.fused_ce_bwd_plain(x, w, labels, lse, g)
+    for got, plain, need in zip((dx, dw), want, (need_dx, need_dw)):
+        if not need:
+            assert got is None
+            continue
+        assert got.dtype == torch.bfloat16 and got.shape == plain.shape
+        rel = (got.float() - plain.float()).abs().max() / plain.float().abs().max()
+        assert rel <= BWD_REL_TOL
+
+
+def test_budget_sweep_needs_a_card(monkeypatch, capsys):
+    """``ops/fused_ce_budget.py`` times CUDA kernels only: without a card it
+    exits 2 and prints no result, and the module's budget stays as it was."""
+    from k8s_dra_driver_tpu_torch.ops import fused_ce_budget
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert fused_ce_budget.main([]) == 2
+    assert capsys.readouterr().out == ""
+    assert torch_ce.P_BUDGET == 32 * 2 ** 20
 
 
 def test_cpu_path_launches_no_kernel_and_other_devices_raise():
@@ -222,7 +408,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_build_dir_is_keyed_inside_the_checkout():
     stems = [p.stem for p in _build.sources()]
-    for kernel in (torch_ce.KERNEL, torch_ce.KERNEL_DX, torch_ce.KERNEL_DW):
+    for kernel in (torch_ce.KERNEL, torch_ce.KERNEL_P, torch_ce.KERNEL_DX,
+                   torch_ce.KERNEL_DW):
         assert kernel in stems
     d = _build.build_dir()
     assert d.parent == _build.BUILD_ROOT and d == _build.build_dir()
