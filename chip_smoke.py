@@ -13,8 +13,14 @@ Phases, each fatal on failure:
  2. kernels: hold each kernel to its plain PyTorch version (and the
     materializing reference) on the card at the shapes the main paths give
     it, and time kernel, plain version, one library call and the bound.
-    fused_ce_fwd at T=4096, D=2048, V=8192, V=1000, labels -1 and V=1001;
-    its library call on the bf16 operands and, labelled f32, on f32 copies.
+    fused_ce_fwd (one launch: the wgmma product, per-tile (max, sum)
+    partials and their fold) at T=4096, D=2048, V=8192 and V=32000, timed
+    (the kernel alone on prepared buffers too, its TFLOP/s, cuBLAS's
+    x @ w, its library call on the bf16 operands and, labelled f32, on
+    f32 copies), and untimed at V=1000 (also with every fifth label -1),
+    labels -1, V=1001 (w's aligned copy), d_model 4096, 2000 and 1001
+    (x's aligned copy); its partials at the bench shape held to
+    fused_ce_fwd_partials_plain; its ptxas report (a spill is fatal).
     The fused-CE backward at the fused objective's shape (T=4096: 4*1023
     tokens padded, the last 4 rows labelled -1 with g=0, g=1/4092
     elsewhere): its vocab chunks printed; fused_ce_p, fused_ce_dx and
@@ -120,6 +126,13 @@ KERNEL_T, KERNEL_D, KERNEL_V = 4096, 2048, 8192
 # in another order over D=2048 terms; the exp/log of the fold add ~1e-6
 # relative on losses of ~9.
 KERNEL_ATOL, KERNEL_RTOL = 1e-3, 1e-4
+# Untimed forward cases, (T, D, V), every fifth row labelled -1: a ragged
+# last vocab tile; w's aligned copy (V % 8 != 0); d_model 4096 (no cap);
+# ragged K; x's aligned copy (D % 8 != 0). V = 32000 (BWD_LARGE_VOCAB) is
+# timed like the bench shape.
+FWD_CASES = {"vocab_1000_pad": (4096, 2048, 1000), "vocab_1001": (512, 2048, 1001),
+             "d_model_4096": (4096, 4096, 8192), "d_model_2000": (4096, 2000, 8192),
+             "d_model_1001": (512, 1001, 1000)}
 # evaluate_nll vs the materializing loss_fn at bench width: the repo's bf16
 # tolerance (bench.py, check_fused_ce_numerics); the logits of loss_fn are
 # rounded to bf16, the kernel's are not.
@@ -273,21 +286,20 @@ def time_cold_ms(fn, iters: int) -> float:
 
 
 def check_kernel_case(name, x, w, labels, timed: bool):
-    """Kernel vs plain version (and the materializing reference where every
-    label is a class). Returns the max abs error and, when ``timed``, the
-    kernel's, plain version's and library call's ms."""
+    """Kernel vs plain version and the materializing reference. Returns the
+    case's row: the max abs errors and, when ``timed``, the kernel's ms
+    through ``fused_ce_losses`` and alone on prepared buffers
+    (``launch_ms``), its TFLOP/s, the plain version's, both library calls'
+    and the bound."""
     import torch
     import torch.nn.functional as F
 
-    from k8s_dra_driver_tpu_torch.ops.fused_ce import (
-        fused_ce_losses,
-        fused_ce_losses_plain,
-        reference_ce_losses,
-    )
+    from k8s_dra_driver_tpu_torch.ops import _build
+    from k8s_dra_driver_tpu_torch.ops import fused_ce as fc
 
-    got = fused_ce_losses(x, w, labels)
+    got = fc.fused_ce_losses(x, w, labels)
     torch.cuda.synchronize()
-    plain = fused_ce_losses_plain(x, w, labels)
+    plain = fc.fused_ce_losses_plain(x, w, labels)
     err = float((got - plain).abs().max())
     bad = ~torch.isclose(got, plain, rtol=KERNEL_RTOL, atol=KERNEL_ATOL)
     if got.shape != labels.shape or not bool(torch.isfinite(got).all()) or bool(bad.any()):
@@ -295,19 +307,30 @@ def check_kernel_case(name, x, w, labels, timed: bool):
              f"{int(bad.sum())} rows outside tolerance")
     real = labels >= 0
     if bool(real.all()):
-        ref = reference_ce_losses(x, w, labels)
+        ref = fc.reference_ce_losses(x, w, labels)
     else:  # a label of -1 matches no class: the loss is the logsumexp
         logits = x.float() @ w.float()
         ref = torch.logsumexp(logits, dim=1)
-        ref[real] = reference_ce_losses(x[real], w, labels[real])
+        del logits
+        ref[real] = fc.reference_ce_losses(x[real], w, labels[real])
     ref_err = float((got - ref).abs().max())
     if not bool(torch.isclose(got, ref, rtol=KERNEL_RTOL, atol=KERNEL_ATOL).all()):
         fail(f"fused_ce kernel vs reference, {name}: max abs err {ref_err:.3e}")
-    row = {"case": name, "T": x.shape[0], "D": x.shape[1], "V": w.shape[1],
+    T, D = x.shape
+    V = w.shape[1]
+    row = {"case": name, "T": T, "D": D, "V": V,
            "max_abs_err_vs_plain": err, "max_abs_err_vs_reference": ref_err}
     if timed:
-        row["ms"] = time_ms(lambda: fused_ce_losses(x, w, labels), 20)
-        row["plain_ms"] = time_ms(lambda: fused_ce_losses_plain(x, w, labels), 5)
+        row["ms"] = time_ms(lambda: fc.fused_ce_losses(x, w, labels), 20)
+        # The kernel alone, on the buffers of one call prepared once (the
+        # counters are left zeroed by each launch, so they are reused as
+        # they are).
+        args = fc._fwd_args(x, w, labels)
+        row["launch_ms"] = time_ms(lambda: _build.launch(fc.KERNEL, x.device, *args), 20)
+        if bool(args[4].any()):
+            fail(f"fused_ce_fwd {name}: the arrival counters were not left zeroed")
+        row["tflops"] = 2.0 * T * D * V / row["ms"] / 1e9
+        row["plain_ms"] = time_ms(lambda: fc.fused_ce_losses_plain(x, w, labels), 5)
         # One PyTorch call on the kernel's bf16 operands (the logits'
         # product in bf16, cross-entropy in f32), and on f32 copies of them
         # (true f32 products).
@@ -315,14 +338,46 @@ def check_kernel_case(name, x, w, labels, timed: bool):
             (x @ w).float(), labels, reduction="none", ignore_index=-1), 5)
         row["library_f32_ms"] = time_ms(lambda: F.cross_entropy(
             x.float() @ w.float(), labels, reduction="none", ignore_index=-1), 5)
+        # The product alone, cuBLAS's x @ w writing the bf16 logits: what
+        # the kernel's row passes and fold add to its mainloop, at most.
+        row["matmul_ms"] = time_ms(lambda: x @ w, 5)
+        row["bound_ms"], row["bound_by"] = bound_ms(T, D, V)
     print(f"kernel fused_ce_fwd {json.dumps(row)}")
     return row
 
 
+def check_fwd_partials(name, x, w, labels) -> None:
+    """The forward kernel's scratch after a launch, each vocab tile's row
+    max and row sum of exp, and its lse and picked, held to
+    fused_ce_fwd_partials_plain and fused_ce_lse_fold_plain."""
+    import torch
+
+    from k8s_dra_driver_tpu_torch.ops import fused_ce as fc
+
+    lse, picked, part = fc._launch_with_partials(x, w, labels)
+    torch.cuda.synchronize()
+    m, l, pk = fc.fused_ce_fwd_partials_plain(x, w, labels)
+    errs = {}
+    for tname, got, want in (("max", part[0], m), ("sum", part[1], l), ("picked", picked, pk),
+                             ("lse", lse, fc.fused_ce_lse_fold_plain(m, l))):
+        errs[tname] = float((got - want).abs().max())
+        if got.shape != want.shape or not bool(torch.isclose(
+                got, want, rtol=KERNEL_RTOL, atol=KERNEL_ATOL).all()):
+            fail(f"fused_ce_fwd partials {name} {tname}: {tuple(got.shape)} (want "
+                 f"{tuple(want.shape)}), max abs err {errs[tname]:.3e}")
+    print(f"kernel fused_ce_fwd partials {name}: vocab tiles {m.shape[0]}, max abs err "
+          f"{json.dumps(errs)}")
+
+
 def bound_ms(T: int, D: int, V: int):
+    from k8s_dra_driver_tpu_torch.ops.fused_ce import FWD_TILE
+
     flops = 2.0 * T * D * V
-    # x and w in bf16, int32 labels read once; lse and picked f32 written.
-    nbytes = 2.0 * (T * D + D * V) + 4.0 * T + 8.0 * T
+    # x and w in bf16, int32 labels read once; the partials, a (max, sum)
+    # pair of f32 a row and vocab tile, written and read once; lse and
+    # picked f32 written.
+    tiles = -(-V // FWD_TILE)
+    nbytes = 2.0 * (T * D + D * V) + 4.0 * T + 2 * 8.0 * tiles * T + 8.0 * T
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
@@ -562,26 +617,41 @@ def phase_bwd_kernels(device):
 
 
 def phase_kernels(device):
+    """fused_ce_fwd held to its plain version and the reference at the bench
+    shape and vocab 32000 (both timed) and at FWD_CASES, its partials at
+    the bench shape; its ptxas report (fatal on a spill). Returns the
+    bench shape's row, with max_abs_err the worst loss error over every
+    case."""
     import torch
 
+    print_ptxas("fused_ce_fwd", "fused_ce")
     gen = torch.Generator(device=device).manual_seed(0)
     T, D, V = KERNEL_T, KERNEL_D, KERNEL_V
 
-    def inputs(t, d, v):
+    def inputs(t, d, v, pad_every=0):
         x = torch.randn(t, d, generator=gen, device=device).to(torch.bfloat16)
         w = (0.02 * torch.randn(d, v, generator=gen, device=device)).to(torch.bfloat16)
         labels = torch.randint(0, v, (t,), generator=gen, device=device)
+        if pad_every:
+            labels[::pad_every] = -1
         return x, w, labels
 
-    rows = [check_kernel_case("bench", *inputs(T, D, V), timed=True)]
+    x, w, labels = inputs(T, D, V)
+    rows = [check_kernel_case("bench", x, w, labels, timed=True)]
+    check_fwd_partials("bench", x, w, labels)
     rows.append(check_kernel_case("vocab_1000", *inputs(T, D, 1000), timed=False))
     x, w, labels = inputs(T, D, V)
     labels[::5] = -1
     labels[-4:] = -1  # the token padding evaluate_nll adds at bench width
     rows.append(check_kernel_case("label_minus_one", x, w, labels, timed=False))
-    # V % 8 != 0 takes the element-wise loader instead of cp.async.
-    rows.append(check_kernel_case("vocab_1001", *inputs(512, D, 1001), timed=False))
-    return rows
+    check_fwd_partials("label_minus_one", x, w, labels)
+    del x, w, labels
+    rows.append(check_kernel_case("vocab_32000", *inputs(*BWD_LARGE_VOCAB, 5), timed=True))
+    for name, (t, d, v) in FWD_CASES.items():
+        rows.append(check_kernel_case(name, *inputs(t, d, v, 5), timed=False))
+    bench = rows[0]
+    bench["max_abs_err"] = max(r["max_abs_err_vs_plain"] for r in rows)
+    return bench
 
 
 def flash_flops(shape, kernel: str) -> float:
@@ -1565,7 +1635,7 @@ def main() -> int:
                 print(f"build {name}: {line.strip()}")
 
     # 2. kernels vs plain
-    rows = phase_kernels(device)
+    bench = phase_kernels(device)
     bwd = phase_bwd_kernels(device)
     flash = phase_flash_kernels(device)
     ops = phase_ops_kernels(device)
@@ -1589,22 +1659,21 @@ def main() -> int:
     if smi.returncode != 0 or not smi.stdout.strip():
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
 
-    bench = rows[0]
-    b_ms, b_by = bound_ms(bench["T"], bench["D"], bench["V"])
     kernels = [{
         "name": "fused_ce_fwd",
         "route": "cuda",
         "source": "k8s_dra_driver_tpu_torch/ops/csrc/fused_ce_fwd.cu",
         "replaces": "k8s_dra_driver_tpu/ops/fused_ce.py:50",
         "launches": launches.get("fused_ce_fwd", 0),
-        "max_abs_err": max(r["max_abs_err_vs_plain"] for r in rows),
+        "max_abs_err": bench["max_abs_err"],
         "ms": bench["ms"],
         "plain_ms": bench["plain_ms"],
-        "bound_ms": b_ms,
-        "bound_by": b_by,
+        "bound_ms": bench["bound_ms"],
+        "bound_by": bench["bound_by"],
         "library_ms": bench["library_ms"],
         "library_call": "F.cross_entropy((x @ w).float()) on the bf16 operands",
         "library_f32_ms": bench["library_f32_ms"],
+        "tflops": bench["tflops"],
     }]
     # fused_ce_p replaces the logits recompute of both TPU backward kernels;
     # times are summed over a backward's chunks, and each library call

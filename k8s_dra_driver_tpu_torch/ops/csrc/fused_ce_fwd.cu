@@ -3,239 +3,181 @@
 // Replaces k8s_dra_driver_tpu/ops/fused_ce.py:_fwd_kernel (the Pallas TPU
 // kernel behind fused_ce_losses). Per token row t it computes
 //     lse[t]    = logsumexp_v (x[t] . w[:, v])       over v < V
-//     picked[t] = x[t] . w[:, labels[t]]             (0 when the label is -1)
-// and the caller forms loss = lse - picked. The [T, V] logits never reach
-// device memory: each [BT, BV] logits tile lives in registers and shared
-// memory only, and is folded into a running (max, sum) per row.
+//     picked[t] = x[t] . w[:, labels[t]]             (0 for a label outside [0, V))
+// both f32, and the caller forms loss = lse - picked. The [T, V] logits
+// never reach device memory.
 //
-// Bound: compute. The work is 2*T*D*V flops against (T*D + D*V)*2 bytes
-// read; at the scoring shapes T=4096, D=2048, V=8192 that is 137 GFLOP,
-// about 0.14 ms at 989 TFLOP/s bf16 dense, against 0.014 ms to read the
-// 48 MB of operands at 3.35 TB/s.
+// Bound: operations. The product is 2*T*D*V flops; at T=4096, D=2048,
+// V=8192, 137 GFLOP, 0.139 ms at 989 TFLOP/s bf16 dense. Its bytes are x
+// and w read once (48 MB), the partials below written and read once (1
+// MB) and lse and picked written: 0.015 ms at 3.35 TB/s.
 //
-// Design. The Pallas grid walked (token tile, vocab tile) in order on one
-// core and carried (m, l, picked) from one vocab step to the next in VMEM
-// scratch. Here blocks run in parallel and in no order, so each block owns
-// BT token rows and a loop inside it walks the whole vocab; nothing carries
-// across blocks. The loop is flattened over (vocab tile, depth tile) and
-// double-buffered: cp.async stages the next bf16 x tile [BT, BK] and w tile
-// [BK, BV] into shared memory while the tensor cores (WMMA, bf16 in, f32
-// accumulate) work on the current pair. After the last depth tile of a
-// vocab tile the accumulators go to a shared f32 tile; eight threads per
-// row fold it into the row's running max and sum, mask columns >= V (no
-// padded copy of w is made), and pick the label's logit. x is re-read from
-// L2 once per vocab tile. This simple first version leaves wgmma, TMA and
-// deeper pipelines to later work; with BT=32 a T=4096 call fills 128 of
-// the card's 132 SMs with one block each.
+// Design: the shared wgmma mainloop of gemm_bf16.cuh (128 x 256 tiles,
+// m64n256k16, a 4-stage TMA ring) on the product x @ w over the whole
+// vocab in one launch, x [T, D] read K-major and w [D, V] MN-major, both in
+// place by descriptor. The grid is row tiles x vocab tiles (32 x 32 = 1024
+// blocks at the shape above), where the Pallas kernel walked the vocab in
+// order on one core. The TPU kernel's online (max, sum) carried across
+// vocab steps becomes a two-level logsumexp:
+//  - The epilogue of a block works on its f32 logits tile in registers.
+//    A consumer thread holds 64 columns of each of its two rows, and the
+//    four lanes of a quad together hold a row's 256: the row's max and
+//    its sum of exp are an in-register pass and two __shfl_xor_sync, no
+//    shared memory and no barrier (exp as ex2.approx of a fused
+//    multiply-add). Columns >= V, which TMA fills with zeros, are masked
+//    by compile-time offset tests in the last vocab tile; the others take
+//    an unmasked pass. The tile's (max, sum) pair of each row goes to an
+//    f32 scratch part [2][n_vocab_tiles][T]. The thread whose columns
+//    hold a row's label writes picked from its f32 accumulator: exactly
+//    one tile holds a given label. The producer is a lone warp: the
+//    epilogue fits the consumers' 168 registers a thread.
+//  - The fold. Each block counts its arrival on its row tile's counter
+//    (after a __threadfence that publishes its partials); the last block
+//    of a row tile folds the partials of its 128 rows, lse = M + log
+//    sum_i l_i exp(m_i - M), M = max_i m_i (32 KB from L2 at the shape
+//    above), writes 0 to picked where the label is no class, and resets
+//    the counter to 0. One launch a call, no second pass.
+// Rows >= T write nothing; ragged T, V and D read zeros through TMA; D has
+// no cap. x or w off TMA's 16-byte rule come as an aligned copy from the
+// wrapper (ops/fused_ce.py:_tma_rows).
 //
 // Plain C interface (loaded with ctypes): fused_ce_fwd returns the CUDA
-// error code of the launch, 0 on success. The kernel allocates nothing and
-// launches on the stream it is given.
+// error code of the launch (or a CUresult of the tensor-map encoder), 0 on
+// success. It allocates nothing and launches on the stream it is given.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
-#include <stdint.h>
+
+#include "gemm_bf16.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-using namespace nvcuda;
+using namespace gemm;
 
-constexpr int BT = 32;        // token rows per block
-constexpr int BV = 128;       // vocab columns per tile
-constexpr int BK = 64;        // depth (d_model) per stage
-constexpr int THREADS = 256;  // 8 warps: 2 (rows) x 4 (columns) of 16x32
-constexpr int XLD = BK + 8;   // shared pitches, padded against bank conflicts
-constexpr int WLD = BV + 8;
-constexpr int LLD = BV + 8;
-constexpr int X_STAGE = BT * XLD;  // bf16 elements per stage
-constexpr int W_STAGE = BK * WLD;
-constexpr int SMEM_BYTES = 2 * (X_STAGE + W_STAGE) * 2 + BT * LLD * 4;
-constexpr int ROW_THREADS = THREADS / BT;  // threads folding one row: 8
-
-static_assert(BT * BK / 8 == THREADS, "one 16-byte x chunk per thread");
-static_assert((BK * BV / 8) % THREADS == 0, "whole w chunks per thread");
-static_assert(ROW_THREADS == 8, "row fold reduces over 8 lanes");
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  const int n = pred ? 16 : 0;  // 0 source bytes: the 16 bytes are zeroed
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(gmem), "r"(n));
+// 2^x, one instruction (relative error about 2^-22; 0 for x below -126).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// Stage x[t0:t0+BT, k0:k0+BK] and w[k0:k0+BK, v0:v0+BV] into shared
-// memory, zero outside [T, D] and [D, V]. VEC: D and V are multiples of 8
-// and both bases 16-byte aligned, so every 8-element chunk is wholly in or
-// out and is copied with one cp.async; otherwise element by element.
-template <bool VEC>
-__device__ __forceinline__ void load_stage(uint16_t* xs, uint16_t* ws,
-                                           const uint16_t* __restrict__ x,
-                                           const uint16_t* __restrict__ w,
-                                           int t0, int k0, int v0, int T,
-                                           int D, int V, int tid) {
-  {
-    const int r = tid / (BK / 8), c = (tid % (BK / 8)) * 8;
-    const int row = t0 + r, k = k0 + c;
-    uint16_t* dst = xs + r * XLD + c;
-    if (VEC) {
-      const bool ok = row < T && k < D;
-      cp_async16(dst, ok ? x + static_cast<size_t>(row) * D + k : x, ok);
-    } else {
+// The (max, sum of exp) pair of row h over the thread's 64 columns of it,
+// reduced over the quad that holds the row's 256 (lanes 4k .. 4k + 3),
+// and the label's logit where the label's column offset `off` from the
+// thread's first column is one of the thread's. MASK: offsets >= past lie
+// beyond the vocab and count in neither (else every column counts).
+template <bool MASK>
+__device__ __forceinline__ void row_stats(const float (&acc)[128], int h, int past, int off,
+                                          float& m, float& s, float& pk, bool& hit) {
+  constexpr float LOG2E = 1.4426950408889634f;
+  m = -INFINITY;
 #pragma unroll
-      for (int e = 0; e < 8; ++e)
-        dst[e] = (row < T && k + e < D) ? x[static_cast<size_t>(row) * D + k + e]
-                                        : uint16_t(0);
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (!MASK || 8 * j + e < past) m = fmaxf(m, acc[4 * j + 2 * h + e]);
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+  // Every tile holds a column < V, so m is finite.
+  const float m2 = m * LOG2E;
+  s = 0.f;
+  pk = 0.f;
+  hit = false;
+#pragma unroll
+  for (int j = 0; j < 32; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float v = acc[4 * j + 2 * h + e];
+      if (!MASK || 8 * j + e < past) s += ex2(fmaf(v, LOG2E, -m2));
+      if (8 * j + e == off) {
+        pk = v;
+        hit = true;
+      }
     }
-  }
-#pragma unroll
-  for (int i = 0; i < (BK * BV / 8) / THREADS; ++i) {
-    const int idx = tid + i * THREADS;
-    const int r = idx / (BV / 8), c = (idx % (BV / 8)) * 8;
-    const int k = k0 + r, col = v0 + c;
-    uint16_t* dst = ws + r * WLD + c;
-    if (VEC) {
-      const bool ok = k < D && col < V;
-      cp_async16(dst, ok ? w + static_cast<size_t>(k) * V + col : w, ok);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        dst[e] = (k < D && col + e < V) ? w[static_cast<size_t>(k) * V + col + e]
-                                        : uint16_t(0);
-    }
-  }
+  s += __shfl_xor_sync(0xffffffffu, s, 1);
+  s += __shfl_xor_sync(0xffffffffu, s, 2);
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS)
-fused_ce_fwd_kernel(const uint16_t* __restrict__ x,
-                    const uint16_t* __restrict__ w,
-                    const int* __restrict__ labels, float* __restrict__ lse,
-                    float* __restrict__ picked, int T, int D, int V) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  uint16_t* xs = reinterpret_cast<uint16_t*>(smem);
-  uint16_t* ws = xs + 2 * X_STAGE;
-  float* ls = reinterpret_cast<float*>(ws + 2 * W_STAGE);
-
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int t0 = blockIdx.x * BT;
-  const int wr = (warp / 4) * 16, wc = (warp % 4) * 32;  // warp's sub-tile
-
-  // Row fold: threads 8r..8r+7 own row r; all eight keep the same state.
-  const int urow = tid / ROW_THREADS, upart = tid % ROW_THREADS;
-  const int grow = t0 + urow;
-  const int label = grow < T ? labels[grow] : -1;
-  float m_run = -INFINITY, l_run = 0.f, pk = 0.f;
-
-  const int nkt = (D + BK - 1) / BK, nvt = (V + BV - 1) / BV;
-  const int n = nkt * nvt;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-
-  load_stage<VEC>(xs, ws, x, w, t0, 0, 0, T, D, V, tid);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-
-  for (int i = 0; i < n; ++i) {
-    const int vt = i / nkt, kt = i - vt * nkt;
-    if (i + 1 < n) {
-      const int vn = (i + 1) / nkt, kn = (i + 1) - vn * nkt;
-      const int s = (i + 1) & 1;
-      load_stage<VEC>(xs + s * X_STAGE, ws + s * W_STAGE, x, w, t0, kn * BK,
-                      vn * BV, T, D, V, tid);
-    }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-    __syncthreads();
-
-    const bf16* xb = reinterpret_cast<const bf16*>(xs + (i & 1) * X_STAGE);
-    const bf16* wb = reinterpret_cast<const bf16*>(ws + (i & 1) * W_STAGE);
+struct FwdEpilogue {
+  // A lone producer warp: the epilogue fits beside the 128 accumulators
+  // within the 168 registers a thread that leaves (only the last vocab
+  // tile takes the masked pass: masking every tile spilled).
+  static constexpr int PRODUCER = 32;
+  const int* labels;
+  float* part;     // [2][nv][T]: each vocab tile's row max, then its row sum
+  int* arrived;    // [row tiles], zero before the launch and after it
+  float* lse;
+  float* picked;
+  int tma_store;   // 0: nothing goes through store_tma
+  __device__ __forceinline__ void operator()(float (&acc)[128], const Tile& tl,
+                                             const CUtensorMap*, int M, int N) const {
+    const int nv = (N + BN - 1) / BN, vt = tl.n0 / BN;
+    // Column offsets 8j + e from the thread's first column c0 are
+    // compile-time constants; row_stats compares against them. Only the
+    // last vocab tile can reach past the vocab: the others skip the mask.
+    const int c0 = tl.col(0);
+    const int past = N - c0;  // offsets >= past lie beyond the vocab
+    const bool whole = N - tl.n0 >= BN;
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, xb + wr * XLD + kk, XLD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, wb + kk * WLD + wc + j * 16, WLD);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
+    for (int h = 0; h < 2; ++h) {
+      const int row = tl.row(h);
+      const int off = (row < M ? labels[row] : -1) - c0;
+      float m, s, pk;
+      bool hit;
+      if (whole) row_stats<false>(acc, h, past, off, m, s, pk, hit);
+      else row_stats<true>(acc, h, past, off, m, s, pk, hit);
+      if (row < M) {
+        if (hit && off < past) picked[row] = pk;
+        if (tl.lane % 4 == 0) {
+          part[static_cast<size_t>(vt) * M + row] = m;
+          part[static_cast<size_t>(nv + vt) * M + row] = s;
+        }
       }
     }
-    __syncthreads();  // the stage just read is refilled next iteration
 
-    if (kt == nkt - 1) {
-      // The two __syncthreads of every iteration separate this tile's
-      // reads of `ls` from the next tile's stores.
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::store_matrix_sync(ls + wr * LLD + wc + j * 16, acc[j], LLD,
-                                wmma::mem_row_major);
-        wmma::fill_fragment(acc[j], 0.f);
-      }
-      __syncthreads();
-
-      const int v0 = vt * BV;
-      const float* lrow = ls + urow * LLD;
-      float tmax = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < BV / ROW_THREADS; ++j) {
-        const int col = upart + ROW_THREADS * j;
-        if (v0 + col < V) tmax = fmaxf(tmax, lrow[col]);
-      }
-#pragma unroll
-      for (int o = 1; o < ROW_THREADS; o <<= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, o));
-      // Every tile holds at least one column < V, so m_new is finite.
-      const float m_new = fmaxf(m_run, tmax);
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < BV / ROW_THREADS; ++j) {
-        const int col = upart + ROW_THREADS * j;
-        if (v0 + col < V) s += expf(lrow[col] - m_new);
-      }
-#pragma unroll
-      for (int o = 1; o < ROW_THREADS; o <<= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, o);
-      l_run = l_run * expf(m_run - m_new) + s;
-      m_run = m_new;
-      if (label >= v0 && label < v0 + BV && label < V) pk = lrow[label - v0];
+    // Arrival: the last block of this row tile folds its partials.
+    __shared__ int last;
+    const int mt = tl.m0 / BM;
+    __threadfence();
+    named_sync(1, CONSUMERS);
+    if (tl.t == 0) last = atomicAdd(&arrived[mt], 1) == nv - 1;
+    named_sync(1, CONSUMERS);
+    if (!last) return;
+    __threadfence();
+    const int row = tl.m0 + tl.t;
+    if (tl.t < BM && row < M) {
+      // Straight from L2 (__ldcg): other blocks wrote these.
+      const float* pm = part + row;
+      const float* pl = part + static_cast<size_t>(nv) * M + row;
+      float mx = -INFINITY;
+#pragma unroll 8
+      for (int i = 0; i < nv; ++i) mx = fmaxf(mx, __ldcg(pm + static_cast<size_t>(i) * M));
+      float l = 0.f;
+#pragma unroll 8
+      for (int i = 0; i < nv; ++i)
+        l += __ldcg(pl + static_cast<size_t>(i) * M) *
+             expf(__ldcg(pm + static_cast<size_t>(i) * M) - mx);
+      lse[row] = mx + logf(l);
+      const int lab = labels[row];
+      if (lab < 0 || lab >= N) picked[row] = 0.f;
     }
+    if (tl.t == 0) arrived[mt] = 0;
   }
-
-  if (upart == 0 && grow < T) {
-    lse[grow] = m_run + logf(l_run);
-    picked[grow] = pk;
-  }
-}
-
-template <bool VEC>
-int launch(const void* x, const void* w, const int* labels, float* lse,
-           float* picked, int T, int D, int V, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_ce_fwd_kernel<VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T + BT - 1) / BT);
-  fused_ce_fwd_kernel<VEC><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      static_cast<const uint16_t*>(x), static_cast<const uint16_t*>(w), labels,
-      lse, picked, T, D, V);
-  return static_cast<int>(cudaGetLastError());
-}
+};
 
 }  // namespace
 
-extern "C" int fused_ce_fwd(const void* x, const void* w, const int* labels,
-                            float* lse, float* picked, int T, int D, int V,
-                            void* stream) {
-  if (T <= 0 || D <= 0 || V <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = D % 8 == 0 && V % 8 == 0 &&
-                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return vec ? launch<true>(x, w, labels, lse, picked, T, D, V, s)
-             : launch<false>(x, w, labels, lse, picked, T, D, V, s);
+// lse and picked [T] f32 from x [T, D] (row pitch ldx) and w [D, V] (row
+// pitch ldw), with labels [T] int32; part is f32 scratch of 2 *
+// ceil(V / 256) * T values, arrived int32 [ceil(T / 128)] zeroed (the
+// kernel leaves it zeroed). Pitches are multiples of 8 elements, x and w
+// 16-byte aligned.
+extern "C" int fused_ce_fwd(const void* x, const void* w, const int* labels, float* part,
+                            int* arrived, float* lse, float* picked, int T, int D, int V,
+                            int ldx, int ldw, void* stream) {
+  if (T <= 0 || D <= 0 || V <= 0 || ldx < D || ldw < V || ldx % 8 || ldw % 8 ||
+      !aligned16(x) || !aligned16(w))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FwdEpilogue epi{labels, part, arrived, lse, picked, 0};
+  return run<true, false>(x, ldx, w, ldw, nullptr, 0, epi, T, V, D,
+                          static_cast<cudaStream_t>(stream));
 }

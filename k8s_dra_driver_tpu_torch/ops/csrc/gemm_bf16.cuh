@@ -1,6 +1,6 @@
 // The bf16 matrix product of the port's wgmma GEMM kernels, shared by
-// tiled_matmul.cu (its bf16 path), fused_ce_p.cu, fused_ce_dx.cu and
-// fused_ce_dw.cu:
+// tiled_matmul.cu (its bf16 path), fused_ce_fwd.cu, fused_ce_p.cu,
+// fused_ce_dx.cu and fused_ce_dw.cu:
 //     c[M, N] = a[M, K] @ b[K, N], bf16 operands, f32 sums,
 // where what becomes of a block's f32 tile is the epilogue, a template
 // parameter that each kernel supplies.

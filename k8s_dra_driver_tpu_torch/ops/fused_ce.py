@@ -6,10 +6,19 @@ of ``k8s_dra_driver_tpu/ops/fused_ce.py``).
 ``[T, vocab]`` logits, and is differentiable in ``x`` and ``w`` through
 ``FusedCE``, a ``torch.autograd.Function`` that saves ``(x, w, labels,
 lse)`` as the JAX custom VJP does and recomputes each logits tile in the
-backward. On CUDA tensors (bf16 x and w) the forward launches
-``csrc/fused_ce_fwd.cu``, or raises; on CPU tensors both directions run
-the plain PyTorch versions below. ``reference_ce_losses`` materializes the
-logits and is the check.
+backward. On CUDA tensors (bf16 x and w) both directions launch the
+kernels under ``csrc/``, or raise; on CPU tensors they run the plain
+PyTorch versions below. ``reference_ce_losses`` materializes the logits
+and is the check.
+
+The CUDA forward, ``csrc/fused_ce_fwd.cu``, is one launch of the bf16
+wgmma product x @ w over the whole vocab in tiles of ``FWD_ROWS`` rows by
+``FWD_TILE`` columns. Each tile's epilogue reduces its f32 logits in
+registers to a (max, sum of exp) pair a row, written to an f32 scratch
+[2, vocab tiles, T], and the tile holding a row's label writes the picked
+logit; the last block of each row tile to arrive folds the pairs into lse.
+``fused_ce_fwd_partials_plain`` and ``fused_ce_lse_fold_plain`` are those
+two steps in plain PyTorch.
 
 The CUDA backward walks the vocab in chunks (``_bwd_chunks``). For each
 chunk ``csrc/fused_ce_p.cu`` recomputes the logits and writes p =
@@ -29,7 +38,7 @@ must lie in ``[0, vocab)``.
 from __future__ import annotations
 
 from functools import partial
-from typing import Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,6 +50,9 @@ KERNEL = "fused_ce_fwd"
 KERNEL_P = "fused_ce_p"
 KERNEL_DX = "fused_ce_dx"
 KERNEL_DW = "fused_ce_dw"
+# The forward kernel's tile: rows of a block, and vocab columns whose
+# (max, sum) pair a row it writes to the scratch.
+FWD_ROWS, FWD_TILE = 128, 256
 # The backward's vocab chunks are multiples of the kernels' 256-column
 # tile (but for the last), as wide as keeps p_c, [T, chunk] bf16, within
 # P_BUDGET bytes: 32 MB, so that p_c, written by fused_ce_p and read at
@@ -80,10 +92,11 @@ def fused_ce_losses(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
 
 
 class FusedCE(torch.autograd.Function):
-    """Forward: (lse, picked) from the fused kernel; saves (x, w, labels,
-    lse). Backward: dx and dw from the two backward kernels (CUDA) or
-    ``fused_ce_dx_plain`` / ``fused_ce_dw_plain`` (CPU), each computed only
-    when its input needs a grad."""
+    """Forward: (lse, picked) from ``fused_ce_fwd``, one launch (CUDA), or
+    ``_plain_parts`` (CPU); saves (x, w, labels, lse). Backward: dx and dw
+    from the chunked backward kernels (CUDA) or ``fused_ce_dx_plain`` /
+    ``fused_ce_dw_plain`` (CPU), each computed only when its input needs a
+    grad."""
 
     @staticmethod
     def forward(ctx, x, w, labels, block_t: int, block_v: int):
@@ -124,15 +137,64 @@ def _kernel_labels(x: torch.Tensor, w: torch.Tensor,
     return labels.to(torch.int32).contiguous()
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor):
-    """Run the CUDA forward kernel: returns (lse, picked), each [T] f32."""
+def _tma_rows(t: torch.Tensor) -> torch.Tensor:
+    """``t`` [r, c] as the kernels read it by TMA, with its row pitch in
+    ``stride(0)``: ``t`` itself when that pitch spans a multiple of 16
+    bytes and its base is 16-byte aligned (``kernels._operand``'s rule),
+    else the first c columns of an aligned copy."""
+    buf, _, _ = _operand(t)
+    return buf[:, :t.shape[1]]
+
+
+# The forward kernel's arrival counters, one int32 a row tile, kept per
+# (device, stream) and grown as needed: zeroed once, then left zeroed by
+# each launch, and launches on one stream never overlap.
+_ARRIVED: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+
+
+def _arrivals(dev: torch.device, row_tiles: int) -> torch.Tensor:
+    """Zeroed arrival counters [row_tiles] int32 for a forward launch on
+    the current stream of ``dev``."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    buf = _ARRIVED.get(key)
+    if buf is None or buf.numel() < row_tiles:
+        buf = _ARRIVED[key] = torch.zeros(row_tiles, dtype=torch.int32, device=dev)
+    return buf[:row_tiles]
+
+
+def _fwd_args(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor) -> tuple:
+    """The CUDA forward kernel's arguments after its device: (x, w,
+    labels32, part, arrived, lse, picked, T, D, V, ldx, ldw). x and w as
+    ``_tma_rows`` gives them; part [2, vocab tiles, T] f32 is the scratch
+    (each ``FWD_TILE`` columns' row max, then row sum of exp, as
+    ``fused_ce_fwd_partials_plain`` forms them), lse and picked [T] f32
+    the outputs, all three from ``torch.empty``; arrived from
+    ``_arrivals``."""
     labels32 = _kernel_labels(x, w, labels)
     t_dim, d = x.shape
     vocab = w.shape[1]
-    lse = torch.empty(t_dim, dtype=torch.float32, device=x.device)
+    x, w = _tma_rows(x), _tma_rows(w)
+    dev = x.device
+    part = torch.empty((2, -(-vocab // FWD_TILE), t_dim), dtype=torch.float32, device=dev)
+    lse = torch.empty(t_dim, dtype=torch.float32, device=dev)
     picked = torch.empty_like(lse)
-    _build.launch(KERNEL, x.device, x, w, labels32, lse, picked, t_dim, d, vocab)
-    return lse, picked
+    return (x, w, labels32, part, _arrivals(dev, -(-t_dim // FWD_ROWS)), lse, picked,
+            t_dim, d, vocab, x.stride(0), w.stride(0))
+
+
+def _launch_with_partials(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Run the CUDA forward kernel on ``_fwd_args``: (lse, picked), each
+    [T] f32, and the scratch it folded, part."""
+    args = _fwd_args(x, w, labels)
+    _build.launch(KERNEL, x.device, *args)
+    part, _, lse, picked = args[3:7]
+    return lse, picked, part
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor):
+    """Run the CUDA forward kernel: returns (lse, picked), each [T] f32."""
+    return _launch_with_partials(x, w, labels)[:2]
 
 
 def _bwd_chunks(t_dim: int, vocab: int) -> List[Tuple[int, int]]:
@@ -143,15 +205,6 @@ def _bwd_chunks(t_dim: int, vocab: int) -> List[Tuple[int, int]]:
     vocab fits."""
     width = max(BWD_TILE, P_BUDGET // (2 * t_dim) // BWD_TILE * BWD_TILE)
     return [(v0, min(width, vocab - v0)) for v0 in range(0, vocab, width)]
-
-
-def _tma_rows(t: torch.Tensor) -> torch.Tensor:
-    """``t`` [r, c] as the kernels read it by TMA, with its row pitch in
-    ``stride(0)``: ``t`` itself when that pitch spans a multiple of 16
-    bytes and its base is 16-byte aligned (``kernels._operand``'s rule),
-    else the first c columns of an aligned copy."""
-    buf, _, _ = _operand(t)
-    return buf[:, :t.shape[1]]
 
 
 def _launch_p(x: torch.Tensor, w: torch.Tensor, labels32: torch.Tensor,
@@ -269,6 +322,37 @@ def fused_ce_losses_plain(x: torch.Tensor, w: torch.Tensor,
     _check(x, w, labels, block_t, block_v)
     lse, picked = _plain_parts(x, w, labels, block_v)
     return lse - picked
+
+
+def fused_ce_fwd_partials_plain(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,
+                                tile: int = FWD_TILE
+                                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward kernel's first step in plain PyTorch: (m, l, picked).
+    m and l are [vocab tiles, T] f32, each tile of ``tile`` columns' row
+    max of the f32 logits and row sum of exp(logits - m), over the columns
+    below vocab only (the last tile is ragged); picked [T] is the label's
+    logit, 0 for a label outside [0, vocab)."""
+    t_dim, vocab = x.shape[0], w.shape[1]
+    xf = x.float()
+    lab = labels.long()
+    ms, ls = [], []
+    picked = torch.zeros(t_dim, device=x.device)
+    for v0 in range(0, vocab, tile):
+        logits = xf @ w[:, v0:v0 + tile].float()
+        m = logits.max(dim=1).values
+        ms.append(m)
+        ls.append(torch.exp(logits - m[:, None]).sum(1))
+        inside = (lab >= v0) & (lab < v0 + logits.shape[1])
+        at = (lab - v0).clamp(0, logits.shape[1] - 1)[:, None]
+        picked = torch.where(inside, logits.gather(1, at)[:, 0], picked)
+    return torch.stack(ms), torch.stack(ls), picked
+
+
+def fused_ce_lse_fold_plain(m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """The forward kernel's fold in plain PyTorch: lse [T] = M + log sum_i
+    l_i exp(m_i - M), M = max_i m_i, over the tiles' partials [tiles, T]."""
+    top = m.max(dim=0).values
+    return top + torch.log((l * torch.exp(m - top)).sum(0))
 
 
 def fused_ce_p_plain(x: torch.Tensor, w: torch.Tensor, labels: torch.Tensor,

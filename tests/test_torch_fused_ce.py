@@ -9,6 +9,7 @@ CUDA kernels themselves are held to those plain versions on the card by
 """
 
 import os
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -98,6 +99,36 @@ def test_shape_contract_raises_value_error():
         torch_ce.fused_ce_losses(x, w, labels[:256])
 
 
+# The forward kernel's two steps in plain PyTorch, partials of 256-column
+# tiles and their fold, against the JAX kernel's (lse, picked): a vocab that
+# divides the tile, V = 1000 and 700 (a ragged last tile), every fifth row
+# labelled -1.
+@pytest.mark.parametrize("V", [1024, 1000, 700])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_partials_and_fold_match_jax_kernel(dtype, V):
+    T, D = 256, 128
+    x, w, labels = _inputs(31, T, D, V)
+    labels[::5] = -1
+    jx, jw = jnp.asarray(x), jnp.asarray(w)
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    if dtype == torch.bfloat16:
+        jx, jw = jx.astype(jnp.bfloat16), jw.astype(jnp.bfloat16)
+        tx, tw = tx.to(dtype), tw.to(dtype)
+    want_lse, want_picked = (np.asarray(a) for a in jax_ce._fwd_parts(
+        jx, jw, jnp.asarray(labels), 256, 512, True))
+    want = np.asarray(jax_ce.fused_ce_losses(jx, jw, jnp.asarray(labels), 256, 512, True))
+    m, l, picked = torch_ce.fused_ce_fwd_partials_plain(tx, tw, torch.from_numpy(labels))
+    n_tiles = -(-V // torch_ce.FWD_TILE)
+    assert m.shape == l.shape == (n_tiles, T) and picked.shape == (T,)
+    assert bool((l >= 1.0).all())  # each tile's max term is exp(0)
+    lse = torch_ce.fused_ce_lse_fold_plain(m, l)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    np.testing.assert_allclose(lse.numpy(), want_lse, **tol)
+    np.testing.assert_allclose(picked.numpy(), want_picked, **tol)
+    np.testing.assert_array_equal(picked.numpy()[labels < 0], 0.0)
+    np.testing.assert_allclose((lse - picked).numpy(), want, **tol)
+
+
 def _cotangent(seed, labels):
     """A non-uniform upstream gradient, 0 on rows labelled -1 (padding)."""
     g = np.random.default_rng(seed).uniform(0.1, 2.0, labels.shape[0])
@@ -184,15 +215,24 @@ def test_bwd_plain_is_what_autograd_runs():
 
 
 def _fake_kernels(monkeypatch):
-    """Replace ``_build.launch`` by each backward kernel's plain version,
-    run on the very buffers ``_launch_bwd`` hands the kernel (so p is
-    rounded to bf16 by its bf16 scratch, as the kernels round it), and
-    record every launch as (name, args)."""
+    """Replace ``_build.launch`` by each kernel's plain version, run on the
+    very buffers the wrappers hand the kernel (the forward's partials and
+    their fold into part, lse and picked; p rounded to bf16 by its bf16
+    scratch, as the kernels round it), and record every launch as (name,
+    args)."""
     calls = []
 
     def launch(name, device, *args):
         calls.append((name, args))
-        if name == torch_ce.KERNEL_P:
+        if name == torch_ce.KERNEL:
+            x, w, lab, part, arrived, lse, picked, *_ = args
+            assert not bool(arrived.any())  # the counters come zeroed
+            m, l, pk = torch_ce.fused_ce_fwd_partials_plain(x, w, lab)
+            part[0].copy_(m)
+            part[1].copy_(l)
+            lse.copy_(torch_ce.fused_ce_lse_fold_plain(part[0], part[1]))
+            picked.copy_(pk)
+        elif name == torch_ce.KERNEL_P:
             x, w, lab, lse, g, p, _, _, _, _, _, _, v0, width = args
             p.copy_(torch_ce.fused_ce_p_plain(x, w, lab, lse, g, v0, width))
         elif name == torch_ce.KERNEL_DX:
@@ -208,6 +248,73 @@ def _fake_kernels(monkeypatch):
 
     monkeypatch.setattr(_build, "launch", launch)
     return calls
+
+
+def _fake_streams(monkeypatch):
+    """Give ``torch.cuda.current_stream`` one stream handle (7) for any
+    device, and empty the forward's counter cache."""
+    monkeypatch.setattr(torch_ce, "_ARRIVED", {})
+    handle = SimpleNamespace(cuda_stream=7)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: handle)
+    return handle
+
+
+def test_fwd_counters_are_kept_per_stream_and_grow(monkeypatch):
+    """The forward's arrival counters come zeroed from one buffer per
+    (device, stream), reused while it is long enough and replaced by a
+    longer zeroed one when it is not."""
+    dev = torch.device("cpu")
+    handle = _fake_streams(monkeypatch)
+    first = torch_ce._arrivals(dev, 4)
+    assert first.shape == (4,) and first.dtype == torch.int32 and not bool(first.any())
+    assert torch_ce._arrivals(dev, 2).data_ptr() == first.data_ptr()
+    handle.cuda_stream = 8
+    other = torch_ce._arrivals(dev, 4)
+    assert other.data_ptr() != first.data_ptr()
+    handle.cuda_stream = 7
+    grown = torch_ce._arrivals(dev, 6)
+    assert grown.shape == (6,) and not bool(grown.any())
+    assert torch_ce._arrivals(dev, 5).data_ptr() == grown.data_ptr()
+
+
+# (T, D, V): aligned; D and V off the 8-element TMA pitch (aligned copies);
+# a ragged last vocab tile and a ragged last row tile.
+@pytest.mark.parametrize("T,D,V", [(256, 128, 1024), (256, 100, 1001), (320, 64, 700)])
+def test_launch_fwd_hands_the_kernel_aligned_operands(monkeypatch, T, D, V):
+    """``FusedCE``'s forward on CPU tensors taken for CUDA ones: one
+    ``fused_ce_fwd`` a call, x and w with 16-byte row pitches and bases (an
+    aligned copy where D or V is not a multiple of 8), the scratch and the
+    zeroed counters sized by the kernel's tiles, and the losses of the
+    plain version."""
+    calls = _fake_kernels(monkeypatch)
+    monkeypatch.setattr(torch_ce, "on_cpu", lambda op, *ts: False)
+    _fake_streams(monkeypatch)
+    x, w, labels = _inputs(37, T, D, V)
+    labels[::4] = -1
+    tx = torch.from_numpy(x).to(torch.bfloat16)
+    tw = torch.from_numpy(w).to(torch.bfloat16)
+    tl = torch.from_numpy(labels)
+    with torch.no_grad():
+        got = torch_ce.fused_ce_losses(tx, tw, tl, block_t=64)
+        torch_ce.fused_ce_losses(tx, tw, tl, block_t=64)
+    assert [name for name, _ in calls] == [torch_ce.KERNEL] * 2
+    xk, wk, lab, part, arrived, lse, picked, t_dim, d, vocab, ldx, ldw = calls[0][1]
+    assert (t_dim, d, vocab) == (T, D, V)
+    assert lab.dtype == torch.int32 and lab.shape == (T,)
+    step = 16 // tx.element_size()
+    for t, ld in ((xk, ldx), (wk, ldw)):
+        assert t.stride(1) == 1 and t.stride(0) == ld
+        assert ld % step == 0 and t.data_ptr() % 16 == 0
+    assert ldx == -(-D // step) * step and ldw == -(-V // step) * step
+    assert (xk.data_ptr() == tx.data_ptr()) == (D % step == 0)
+    assert (wk.data_ptr() == tw.data_ptr()) == (V % step == 0)
+    assert part.shape == (2, -(-V // torch_ce.FWD_TILE), T) and part.dtype == torch.float32
+    assert arrived.shape == (-(-T // torch_ce.FWD_ROWS),) and arrived.dtype == torch.int32
+    assert calls[1][1][4].data_ptr() == arrived.data_ptr()  # kept, not zeroed anew
+    assert lse.shape == picked.shape == (T,)
+    np.testing.assert_allclose(got.numpy(),
+                               torch_ce.fused_ce_losses_plain(tx, tw, tl, 64).numpy(),
+                               **BF16_TOL)
 
 
 def _bwd_args(T, D, V, dtype=torch.bfloat16, seed=29):
